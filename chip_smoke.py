@@ -6,24 +6,38 @@
 Phases, each of which fails the run (non-zero exit) on error:
   1. build the CUDA kernels from humor_torch/csrc with nvcc (sm_90a), in
      parallel, and print the build seconds;
-  2. hold each kernel against its plain PyTorch version on the card at
-     full width, M=16 rows (the stage-3 line-search batch): the whole
-     chain at T=6 with tight bounds, the whole chain at T=59 (the stage-3
-     rollout), and every one of the 59 steps on its own; time kernel and
-     plain version at T=59. The seeded random-weight model is chaotic
-     over 59 steps (its own float32 and float64 plain runs part by tens
-     of metres), so the T=59 whole-chain check scales the decoder's
-     output layer by 0.1, which makes the chain well-conditioned (plain
-     float32 vs float64: 3e-4 m, backward 1e-5 max-scaled, measured on
-     the CPU); the step-by-step check uses the unscaled weights;
+  2. hold each kernel against its plain PyTorch version on the card:
+     the rollout kernels at full width, M=16 rows (the stage-3
+     line-search batch): the whole chain at T=6 with tight bounds, the
+     whole chain at T=59 (the stage-3 rollout), and every one of the 59
+     steps on its own; time kernel and plain version at T=59. The seeded
+     random-weight model is chaotic over 59 steps (its own float32 and
+     float64 plain runs part by tens of metres), so the T=59 whole-chain
+     check scales the decoder's output layer by 0.1, which makes the
+     chain well-conditioned (plain float32 vs float64: 3e-4 m, backward
+     1e-5 max-scaled, measured on the CPU); the step-by-step check uses
+     the unscaled weights. The nearest-neighbour kernel at one
+     line-search candidate's slice of the PROX fit (120 clouds x 4096
+     queries x 6890 points, 10% of the queries at 1e6 as the energy puts
+     missing points), on duplicated points (first index) and at prime
+     sizes; timed with its plain version at the fit's full
+     (960, 4096, 6890);
   3. run the joints3d 3-stage test-time fit (B=2 windows x 60 frames,
      L-BFGS iterations 30/70/70, the bench_tto joints3d weights) on
      seeded random weights and a seeded synthetic body with 6890
      vertices; check that every loss is finite, that the fit lowered
-     stages 1 and 2, and that both kernels were launched by it.
-
-  4. run the fit once more under torch.profiler and print the device-busy
-     share of its wall time and the kernels with the most device time.
+     stages 1 and 2, and that both rollout kernels were launched by it;
+  4. hold the PROX stage objectives (values and gradients) on the card
+     against the same on the CPU at a small input; then run the PROX
+     RGB-D fit (B=2 x 60, configs/fit_proxd.cfg's weights, bisquare
+     weighting, the floor plane optimized, 30/80/70) on a seeded
+     4096-point cloud per frame, 2D keypoints and a floor; check the
+     same as for phase 3, the floor plane's shape, and that all three
+     kernels were launched by it; print the mean distance from the
+     visible points to the stage-1 and stage-2 meshes;
+  5. run the PROX fit at reduced iterations once plainly and once under
+     torch.profiler, and print the device-busy share of the wall time
+     and the kernels with the most device time.
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then the result line {"ok": true, "device": {...}} last. Imports nothing
@@ -38,9 +52,14 @@ import time
 
 B, T = 2, 60
 NUM_ITERS = (30, 70, 70)
-M_STAGE3 = 16          # 8 line-search candidates x B windows
+PROX_ITERS = (30, 80, 70)      # configs/fit_proxd.cfg
+PROFILE_ITERS = (5, 10, 10)
+K_CAND = 8                     # line-search candidates
+M_STAGE3 = K_CAND * B
 T_ROLL = T - 1
 V_VERTS = 6890
+N_POINTS = 4096                # PROX's cloud size
+NN_TOL = 1e-5          # kernel vs plain: distance abs, and tie width
 F32_PEAK = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12     # H100 SXM device-memory bytes/s
 
@@ -184,6 +203,95 @@ def check_kernels(weights, M, steps, tol_world, tol_bwd, timed):
     return res
 
 
+def nn_inputs(clouds, n, m, seed, hidden=0.1):
+    """Seeded body-sized clouds 2.5 m in front of the camera: xyz2 (the
+    mesh) and xyz1 (its points with 1 cm noise), the last `hidden` share
+    of the queries at 1e6 as the point-cloud energy puts missing ones."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    y = rng.randn(clouds, m, 3) * [0.25, 0.5, 0.15] + [0.0, 0.3, 2.5]
+    pick = rng.randint(0, m, size=(clouds, n))
+    x = np.take_along_axis(y, pick[..., None], 1) + rng.randn(clouds, n, 3) \
+        * 0.01
+    n_vis = n - int(round(hidden * n))
+    x[:, n_vis:] = 1e6
+    dev = torch.device("cuda")
+    return (torch.tensor(x, dtype=torch.float32, device=dev),
+            torch.tensor(y, dtype=torch.float32, device=dev), n_vis)
+
+
+def compare_nn(name, x, y, n_vis, first_index=None):
+    """Kernel against plain version on visible queries: distances within
+    NN_TOL; an index may differ only at a near-tie, where the two chosen
+    points' float64 distances lie within NN_TOL. With `first_index`, the
+    queries of those columns must get exactly the plain (first) index."""
+    import torch
+
+    from humor_torch.ops import chamfer as CH
+
+    d_k, i_k = CH.nn_forward(x, y)
+    d_p, i_p = CH.nn_distance_plain(x, y)
+    torch.cuda.synchronize()
+    dk, dp = d_k[:, :n_vis], d_p[:, :n_vis]
+    ik, ip = i_k[:, :n_vis].long(), i_p[:, :n_vis].long()
+    err = (dk - dp).abs().max().item()
+    differ = ik != ip
+    xv = x[:, :n_vis].double()
+    y64 = y.double()
+
+    def d64(idx):
+        nn = torch.gather(y64, 1, idx[..., None].expand(-1, -1, 3))
+        return ((xv - nn) ** 2).sum(-1)
+
+    tie_gap = ((d64(ik) - d64(ip)).abs()[differ].max().item()
+               if bool(differ.any()) else 0.0)
+    hidden_ok = bool(((i_k[:, n_vis:] >= 0)
+                      & (i_k[:, n_vis:] < y.shape[1])).all()) and bool(
+        torch.isfinite(d_k).all())
+    res = {"shape": list(x.shape[:2]) + [y.shape[1]], "max_abs_err": err,
+           "index_agreement": 1.0 - differ.double().mean().item(),
+           "index_mismatches": int(differ.sum()), "max_tie_gap": tie_gap}
+    if first_index is not None:
+        res["first_index_ok"] = bool((ik[:, first_index] ==
+                                      ip[:, first_index]).all())
+    print(f"[nn {name}] " + json.dumps(res))
+    if not (err <= NN_TOL and tie_gap <= NN_TOL and hidden_ok
+            and res.get("first_index_ok", True)):
+        fail(f"nn_distance kernel disagrees ({name}): {res}")
+    return res
+
+
+def check_nn():
+    """The three comparisons of phase 2, then the times at the fit's
+    full shape. Returns (max abs err at the fit's slice, kernel ms, plain
+    ms, the full shape)."""
+    import torch
+
+    from humor_torch.ops import chamfer as CH
+
+    clouds = B * T
+    x, y, n_vis = nn_inputs(clouds, N_POINTS, V_VERTS, seed=0)
+    res = compare_nn("fit slice", x, y, n_vis)
+    # duplicated points: the last 890 points repeat the first 890, and
+    # every 8th query sits 1 mm from one of those
+    x2, y2, n2 = nn_inputs(8, 1024, V_VERTS, seed=1, hidden=0.0)
+    y2[:, -890:] = y2[:, :890]
+    q = torch.arange(0, 1024, 8, device=x2.device)
+    x2[:, q] = y2[:, q % 890] + 1e-3
+    compare_nn("duplicates", x2, y2, n2, first_index=q)
+    x3, y3, n3 = nn_inputs(7, 1031, 2053, seed=2)
+    compare_nn("prime sizes", x3, y3, n3)
+    shape = (K_CAND * clouds, N_POINTS, V_VERTS)
+    xf, yf, _ = nn_inputs(shape[0], N_POINTS, V_VERTS, seed=3)
+    ms = cuda_ms(lambda: CH.nn_forward(xf, yf), 10)
+    plain_ms = cuda_ms(lambda: CH.nn_distance_plain(xf, yf), 2)
+    print("[timing nn] " + json.dumps({"shape": shape, "ms": ms,
+                                       "plain_ms": plain_ms}))
+    return res["max_abs_err"], ms, plain_ms, shape
+
+
 def make_models():
     import torch
 
@@ -222,11 +330,260 @@ def make_observations(models, seed):
     return {"joints3d": gt["joints3d"]}
 
 
+SMPL2OP = tuple(i % 22 for i in range(25))    # bench_tto.py's map for
+CAM_F, CAM_C = (1060.5, 1060.4), (951.3, 536.8)  # the 22-joint body
+FLOOR = (0.0, 1.0, 0.0, 1.5)
+
+
+def prox_models(models):
+    """The models with the synthetic body's template moved so that its
+    rest root joint sits at the origin, as SMPL's pelvis nearly does. The
+    PROX init puts each frame's translation at its cloud's centroid, and
+    the bisquare weights (|distance| over a MAD scale) give no gradient
+    when every point is far: with the synthetic root 0.9 m up, the fit
+    would start outside the point term's reach (measured on the CPU:
+    0.7 m from the cloud after stage 2, against 0.08 m root-centred)."""
+    import dataclasses
+
+    body = models.body
+    j0 = body.j_regressor[0] @ body.v_template
+    return models._replace(body=dataclasses.replace(
+        body, v_template=body.v_template - j0))
+
+
+def make_prox_observations(models, seed, frames=T, points=N_POINTS):
+    """A PROX RGB-D observation of a seeded VPoser pose sequence ~2.5 m in
+    front of the camera (-y up), as benchmarks/bench_tto.py makes its RGB
+    ones but turned near the fit's initial root orientation (pi about x,
+    as PROX bodies face the camera): its OpenPose joints projected with
+    2 px noise (confidence 1), and per frame `points` of its mesh
+    vertices with 1 cm noise, 2% of them pushed 0.5 m off (outliers for
+    the bisquare cut) and the last 10% of the rows inf (a short cloud's
+    padding)."""
+    import numpy as np
+    import torch
+
+    from humor_torch.fitting import geometry as geo
+    from humor_torch.fitting import optimizer as O
+    from humor_torch.models import vposer as vp
+
+    rng = np.random.RandomState(seed)
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    z = f(rng.randn(B, frames, models.vposer_cfg.latent_dim) * 0.3)
+    trans = f(rng.randn(B, frames, 3) * 0.1 + [0.0, 0.3, 2.5])
+    ro = f(np.tile(rng.randn(B, 1, 3) * 0.2 + [np.pi, 0.0, 0.0],
+                   (1, frames, 1)))
+    cam_f, cam_c = f(np.tile(CAM_F, (B, 1))), f(np.tile(CAM_C, (B, 1)))
+    with torch.no_grad():
+        pose = vp.latent2pose(models.vposer_cfg, models.vposer, z)
+        gt = O.smpl_results(models.body, trans, ro, pose, torch.zeros(B, 16),
+                            verts="full")
+        full = torch.cat([gt["joints3d"], gt["joints3d_extra"]], dim=2)
+        op3d = full[:, :, list(SMPL2OP)].reshape(B * frames, 25, 3)
+        uv = geo.perspective_projection(
+            op3d, torch.eye(3).expand(B * frames, 3, 3),
+            torch.zeros(B * frames, 3), cam_f.repeat_interleave(frames, 0),
+            cam_c.repeat_interleave(frames, 0))
+    uv = uv.reshape(B, frames, 25, 2).numpy() \
+        + rng.randn(B, frames, 25, 2) * 2.0
+    verts = gt["points3d"].numpy()
+    pick = rng.rand(*verts.shape[:3]).argsort(axis=-1)[..., :points]
+    pts = np.take_along_axis(verts, pick[..., None], 2) \
+        + rng.randn(B, frames, points, 3) * 0.01
+    n_out = int(0.02 * points)
+    off = rng.randn(B, frames, n_out, 3)
+    pts[:, :, :n_out] += 0.5 * off / np.linalg.norm(off, axis=-1,
+                                                    keepdims=True)
+    pts[:, :, points - points // 10:] = np.inf
+    return {"points3d": f(pts),
+            "joints2d": f(np.concatenate([uv, np.ones((B, frames, 25, 1))],
+                                         -1)),
+            "cam_f": cam_f, "cam_center": cam_c,
+            "floor_plane": f(np.tile(FLOOR, (B, 1)))}
+
+
+def prox_config(num_iters, frames=T):
+    """configs/fit_proxd.cfg: its stage weights, bisquare at 4.6851, the
+    floor plane optimized."""
+    from humor_torch.fitting import energies as E
+    from humor_torch.fitting import optimizer as O
+
+    w12 = E.StageWeights(points3d=1.0, joints2d=0.001, pose_prior=0.1,
+                         shape_prior=0.034, joints3d_smooth=100.0)
+    w3 = E.StageWeights(points3d=1.0, joints2d=0.001, shape_prior=0.034,
+                        motion_prior=0.075, init_motion_prior=0.075,
+                        joint_consistency=100.0, bone_length=2000.0,
+                        contact_vel=100.0, contact_height=10.0, floor_reg=1.0)
+    return O.TTOConfig(
+        seq_len=frames, stage_weights=(w12, w12, w3),
+        energy=E.EnergyConfig(robust_loss="bisquare",
+                              robust_tuning_const=4.6851,
+                              smpl2op_map=SMPL2OP),
+        num_iters=num_iters, optim_floor=True,
+        stage3_tune_init_num_frames=min(15, frames),
+        stage3_freeze_start=min(30, num_iters[2]),
+        stage3_freeze_end=min(55, num_iters[2]))
+
+
+def check_prox_objectives(models, frames=8, points=256):
+    """The PROX stage objectives on the card (nearest neighbours in the
+    kernel) against the same on the CPU (the plain version, which the CPU
+    tests hold against the JAX package), at a small input: B=2 windows x
+    8 frames x 256 points on the full 6890-vertex body. Values rtol 1e-4,
+    gradients 1e-3 of their max (the CPU tests' tolerances)."""
+    import torch
+
+    from humor_torch.fitting import optimizer as O
+
+    cfg = prox_config((1, 1, 1), frames)
+    obs = make_prox_observations(models, 1, frames, points)
+    errs = {}
+    with torch.no_grad():
+        fm_cpu = O.prepare_models(models, "cpu")
+        v12 = O.init_variables(cfg, fm_cpu.models, B, obs, "cpu")
+        v12["latent_pose"] = v12["latent_pose"] + 0.1
+        v3 = O.stage3_setup(cfg, fm_cpu, v12)
+    w3 = cfg.stage_weights[2]
+    cases = (
+        ("stage1", lambda fm, v: O.stage1_objective(cfg, fm, v, "full"), v12,
+         ("trans", "root_orient")),
+        ("stage2", lambda fm, v: O.stage2_objective(cfg, fm), v12,
+         ("trans", "root_orient", "latent_pose", "betas")),
+        ("stage3", lambda fm, v: O.stage3_objective(
+            fm, w3, frames, 1.0, cfg.energy, optim_floor=True), v3, tuple(v3)))
+    for name, make, v, keys in cases:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            fm = O.prepare_models(models, dev)
+            leaves = {k: t.to(dev).clone().requires_grad_(k in keys)
+                      for k, t in v.items()}
+            ob = {k: t.to(dev) for k, t in obs.items()}
+            val = make(fm, leaves)(leaves, ob).sum()
+            grads = torch.autograd.grad(val, [leaves[k] for k in keys])
+            out[dev] = (float(val.detach()), [g.cpu() for g in grads])
+        (vc, gc), (vg, gg) = out["cpu"], out["cuda"]
+        g_err = max(float((a - b).abs().max() / (b.abs().max() + 1e-12))
+                    for a, b in zip(gg, gc))
+        errs[name] = {"value_rel": abs(vg - vc) / abs(vc), "grad_scaled": g_err}
+    print("[prox objectives card vs cpu] " + json.dumps(errs))
+    for name, e in errs.items():
+        if not (e["value_rel"] <= 1e-4 and e["grad_scaled"] <= 1e-3):
+            fail(f"PROX {name} objective on the card disagrees with the CPU:"
+                 f" {e}")
+
+
+def reset_launches():
+    from humor_torch.ops import chamfer as CH
+    from humor_torch.ops import rollout_kernel as RK
+
+    for counts in (RK.launches, CH.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches():
+    from humor_torch.ops import chamfer as CH
+    from humor_torch.ops import rollout_kernel as RK
+
+    return {**RK.launches, **CH.launches}
+
+
+def check_result(res, num_iters, shapes):
+    """Finite losses of the right length, stages 1-2 lowered, finite
+    outputs of the expected shapes."""
+    import torch
+
+    losses = {k: v.cpu() for k, v in res.losses.items()}
+    for k, n in zip(("stage1", "stage2", "stage3"), num_iters):
+        if losses[k].numel() != n:
+            fail(f"{k}: {losses[k].numel()} loss entries, want {n}")
+        if not bool(torch.isfinite(losses[k]).all()):
+            fail(f"{k} losses not finite: {losses[k].tolist()}")
+    for k in ("stage1", "stage2"):
+        if not losses[k][-1] < losses[k][0]:
+            fail(f"{k} did not lower its loss: {losses[k].tolist()}")
+    for k, shp in shapes.items():
+        v = res.final[k]
+        if tuple(v.shape) != shp or not bool(torch.isfinite(v).all()):
+            fail(f"final {k}: shape {tuple(v.shape)} (want {shp}) or "
+                 "non-finite values")
+    return losses
+
+
+FINAL_SHAPES = {"trans": (B, T, 3), "root_orient": (B, T, 3),
+                "pose_body": (B, T, 63), "betas": (B, 16),
+                "latent_motion": (B, T - 1, 48),
+                "joints3d_rollout": (B, T, 22, 3), "contacts": (B, T, 22)}
+
+
+def cloud_to_mesh_m(models, obs, stage):
+    """Mean distance (m) from the visible observed points to the mesh of
+    a stage's exported fit (plain nearest neighbours)."""
+    import torch
+
+    from humor_torch.fitting import optimizer as O
+    from humor_torch.ops import chamfer as CH
+
+    dev = stage["trans"].device
+    body = models.body.to(dev)
+    with torch.no_grad():
+        mesh = O.smpl_results(body, stage["trans"], stage["root_orient"],
+                              stage["pose_body"], stage["betas"],
+                              verts="full")["points3d"]
+        pts = obs["points3d"].to(dev)
+        vis = torch.isfinite(pts[..., 0])
+        q = torch.where(torch.isfinite(pts), pts, torch.full_like(pts, 1e6))
+        d, _ = CH.nn_distance_plain(q.reshape(B * T, N_POINTS, 3),
+                                    mesh.reshape(B * T, -1, 3))
+        return float(d.reshape(B, T, N_POINTS).sqrt()[vis].mean())
+
+
+def run_prox_fit(models):
+    """Phase 4: the stage objectives on the card against the CPU, then
+    the PROX RGB-D fit, counted from zero."""
+    import torch
+
+    from humor_torch.fitting import optimizer as O
+
+    models = prox_models(models)
+    check_prox_objectives(models)
+    runner = O.make_runner(prox_config(PROX_ITERS), models, device="cuda")
+    obs = make_prox_observations(models, seed=0)
+    reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    res = runner(obs, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses = check_result(res, PROX_ITERS, dict(
+        FINAL_SHAPES, floor_plane=(B, 4), prior_trans=(B, T, 3)))
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"the PROX fit never launched {k}")
+    print("[prox fit] " + json.dumps({
+        "seconds": wall, "stage_seconds": timings,
+        "final_losses": {k: float(v[-1]) for k, v in losses.items()},
+        "first_losses": {k: float(v[0]) for k, v in losses.items()},
+        "stage1_cloud_to_mesh_m": cloud_to_mesh_m(
+            models, obs, res.per_stage["stage1"]),
+        "stage2_cloud_to_mesh_m": cloud_to_mesh_m(
+            models, obs, res.per_stage["stage2"]),
+        "floor_plane": res.final["floor_plane"].cpu().tolist(),
+        "launches": launches}))
+    profiled = O.make_runner(prox_config(PROFILE_ITERS), models,
+                             device="cuda")
+    profile_fit(profiled, obs)
+    return launches
+
+
 def profile_fit(runner, obs):
-    """One more fit under torch.profiler: the device-busy share of its
-    wall time and the kernels with the most device time (only device
-    kernel events are summed: host-side ranges that enclose them would
-    count their time twice)."""
+    """The fit once unprofiled, then under torch.profiler: the device-busy
+    share of the profiled wall time and of the unprofiled one (the
+    profiler slows the host several-fold, not the device), and the
+    kernels with the most device time (only device kernel events are
+    summed: host-side ranges that enclose them would count their time
+    twice)."""
     import collections
 
     import torch
@@ -234,6 +591,10 @@ def profile_fit(runner, obs):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner(obs)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -248,8 +609,10 @@ def profile_fit(runner, obs):
     busy_ms = sum(ms for _, ms in per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:15]
     print("[profile] " + json.dumps({
-        "wall_s": wall, "device_busy_s": busy_ms / 1e3,
+        "wall_s": wall, "unprofiled_wall_s": plain_wall,
+        "device_busy_s": busy_ms / 1e3,
         "device_busy_share": busy_ms / 1e3 / wall,
+        "device_busy_share_unprofiled": busy_ms / 1e3 / plain_wall,
         "kernel_launches": sum(n for n, _ in per_name.values()),
         "top": [{"name": k[:80], "count": n, "device_ms": ms}
                 for k, (n, ms) in top]}))
@@ -260,7 +623,6 @@ def run_fit(models):
 
     from humor_torch.fitting import energies as E
     from humor_torch.fitting import optimizer as O
-    from humor_torch.ops import rollout_kernel as RK
 
     w1 = E.StageWeights(joints3d=1.0)
     w2 = E.StageWeights(joints3d=1.0, pose_prior=2e-4, shape_prior=1.67e-4,
@@ -272,34 +634,14 @@ def run_fit(models):
                       num_iters=NUM_ITERS)
     runner = O.make_runner(cfg, models, device="cuda")
     obs = make_observations(models, seed=0)
-    for k in RK.launches:
-        RK.launches[k] = 0
+    reset_launches()
     timings = {}
     t0 = time.perf_counter()
     res = runner(obs, timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(RK.launches)
-
-    losses = {k: v.cpu() for k, v in res.losses.items()}
-    for k, v in losses.items():
-        if v.numel() != {"stage1": NUM_ITERS[0], "stage2": NUM_ITERS[1],
-                         "stage3": NUM_ITERS[2]}[k]:
-            fail(f"{k}: {v.numel()} loss entries")
-        if not bool(torch.isfinite(v).all()):
-            fail(f"{k} losses not finite: {v.tolist()}")
-    for k in ("stage1", "stage2"):
-        if not losses[k][-1] < losses[k][0]:
-            fail(f"{k} did not lower its loss: {losses[k].tolist()}")
-    shapes = {"trans": (B, T, 3), "root_orient": (B, T, 3),
-              "pose_body": (B, T, 63), "betas": (B, 16),
-              "latent_motion": (B, T - 1, 48),
-              "joints3d_rollout": (B, T, 22, 3), "contacts": (B, T, 22)}
-    for k, shp in shapes.items():
-        v = res.final[k]
-        if tuple(v.shape) != shp or not bool(torch.isfinite(v).all()):
-            fail(f"final {k}: shape {tuple(v.shape)} (want {shp}) or "
-                 "non-finite values")
+    launches = read_launches()
+    losses = check_result(res, NUM_ITERS, FINAL_SHAPES)
     for k in ("rollout_fwd", "rollout_bwd"):
         if launches[k] <= 0:
             fail(f"the fit never launched {k}")
@@ -318,7 +660,6 @@ def run_fit(models):
         "stage1_mean_joint_err_m": float(err1),
         "stage3_rollout_mean_joint_err_m": float(err3),
         "launches": launches}))
-    profile_fit(runner, obs)
     return launches
 
 
@@ -339,7 +680,8 @@ def main():
 
     # 1. build
     t0 = time.perf_counter()
-    built = cuda_build.build(["rollout_fwd", "rollout_bwd"], force=True)
+    built = cuda_build.build(["rollout_fwd", "rollout_bwd", "nn_distance"],
+                             force=True)
     print("[build] " + json.dumps({"seconds": time.perf_counter() - t0,
                                    "per_library": built}))
 
@@ -353,9 +695,14 @@ def main():
     full = check_kernels(RK.RolloutWeights(damped(params, 0.1), dev),
                          M_STAGE3, T_ROLL, tol_world=5e-3, tol_bwd=1e-3,
                          timed=True)
+    nn_err, nn_ms, nn_plain_ms, nn_shape = check_nn()
 
-    # 3. the fit, counted from zero
-    launches = run_fit(make_models())
+    # 3.-5. the fits, each counted from zero
+    models = make_models()
+    by_path = {"joints3d_fit": run_fit(models),
+               "prox_fit": run_prox_fit(models)}
+    launches = {k: sum(p[k] for p in by_path.values())
+                for k in by_path["prox_fit"]}
 
     fl = rollout_flops(M_STAGE3, T_ROLL)
     weight_bytes = 4.0 * sum(t.numel() for part in (weights.prior,
@@ -371,6 +718,11 @@ def main():
 
     b_fwd, by_fwd = bound(fl, weight_bytes + io_fwd)
     b_bwd, by_bwd = bound(2 * fl, 2 * weight_bytes + io_bwd)
+    # nearest neighbour: 6 FLOP a pair (3 products, 3 sums: the JAX cost
+    # model's count); inputs read once, dist and idx written once
+    nc, nq, nm = nn_shape
+    b_nn, by_nn = bound(6.0 * nc * nq * nm,
+                        4.0 * 3 * nc * (nq + nm) + 8.0 * nc * nq)
     kernels = [
         {"name": "rollout_fwd", "route": "cuda",
          "source": "humor_torch/csrc/rollout_fwd.cu",
@@ -386,7 +738,15 @@ def main():
          "max_abs_err": full["bwd_err"], "ms": full["bwd_ms"],
          "plain_ms": full["bwd_plain_ms"], "bound_ms": b_bwd,
          "bound_by": by_bwd, "library_ms": None},
+        {"name": "nn_distance", "route": "cuda",
+         "source": "humor_torch/csrc/nn_distance.cu",
+         "replaces": "humor_tpu/ops/chamfer.py:90",
+         "launches": launches["nn_distance"], "max_abs_err": nn_err,
+         "ms": nn_ms, "plain_ms": nn_plain_ms, "bound_ms": b_nn,
+         "bound_by": by_nn, "library_ms": None},
     ]
+    for k in kernels:
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,13 +1,15 @@
-"""Fitting energies of the 3-stage TTO, joints3d terms (port of
-humor_tpu/fitting/energies.py).
+"""Fitting energies of the 3-stage TTO (port of
+humor_tpu/fitting/energies.py): the joints3d, keypoint-vertex, point-cloud,
+2D-keypoint and floor terms, the priors, and the stage objectives over
+them. Not ported: the overlap-consistency terms.
 
 Every term returns one value per window (B,), summed over everything
 else; a stage objective is the weighted sum of its terms, still (B,).
 The optimizer sums windows, and folds line-search candidates into the
-window batch, which is exact because no joints3d term couples windows.
-Missing observations carry an inf sentinel and are masked with
-`torch.where`, never by multiplying (0 * inf is NaN, in the gradient
-too).
+window batch, which is exact because no ported term couples windows (the
+point-cloud term's robust scale is per window, as in JAX). Missing
+observations carry an inf sentinel and are masked with `torch.where`,
+never by multiplying (0 * inf is NaN, in the gradient too).
 """
 
 from __future__ import annotations
@@ -20,11 +22,18 @@ import numpy as np
 import torch
 
 from humor_torch.body_model import constants as C
+from humor_torch.fitting import geometry as geo
+from humor_torch.fitting import robust as rob
 from humor_torch.models import gmm as gmm_lib
+from humor_torch.ops import chamfer
 
 CONTACT_HEIGHT_THRESH = 0.08
 
-TIME_INDEXED_OBS_KEYS = frozenset({"joints3d"})
+# Observation keys whose axis 1 is time (sliced to a stage-3 sub-window);
+# everything else (floor_plane, cam_f, cam_center, ...) is per-window
+# metadata and passes through unsliced whatever its shape.
+TIME_INDEXED_OBS_KEYS = frozenset(
+    {"joints3d", "verts3d", "points3d", "joints2d"})
 
 
 @dataclass(frozen=True)
@@ -33,6 +42,9 @@ class StageWeights:
 
     joints3d: float = 0.0
     joints3d_rollout: float = 0.0
+    verts3d: float = 0.0
+    points3d: float = 0.0
+    joints2d: float = 0.0
     pose_prior: float = 0.0
     shape_prior: float = 0.0
     motion_prior: float = 0.0
@@ -42,6 +54,18 @@ class StageWeights:
     joints3d_smooth: float = 0.0
     contact_vel: float = 0.0
     contact_height: float = 0.0
+    floor_reg: float = 0.0
+
+
+@dataclass(frozen=True)
+class EnergyConfig:
+    """Settings shared by all stages."""
+
+    robust_loss: str = "none"           # for points3d: 'none' | 'bisquare'
+    robust_tuning_const: float = rob.BISQUARE_TUNE_CONST
+    joints2d_sigma: float = 100.0
+    smpl2op_map: Optional[Tuple[int, ...]] = None
+    ignore_op_joints: Tuple[int, ...] = tuple(C.OP_IGNORE_JOINTS)
 
 
 def _per_window(x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +80,65 @@ def joints3d_loss(obs: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     """Visibility-masked 0.5 * squared error."""
     diff = torch.where(visible_mask(obs), obs - pred, torch.zeros_like(pred))
     return 0.5 * _per_window(diff * diff)
+
+
+def verts3d_loss(obs: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    return joints3d_loss(obs, pred)
+
+
+def points3d_loss(cfg: EnergyConfig, obs: torch.Tensor, pred: torch.Tensor
+                  ) -> torch.Tensor:
+    """One-way chamfer from the observed cloud (B, T, N, 3), inf-padded,
+    to the predicted mesh (B, T, V, 3), with robust weighting of the
+    distances. Padded points sit at 1e6 for the nearest-neighbour search
+    and are masked out of the robust scale (per window, over T*N) and of
+    the sum."""
+    B, T, N, _ = obs.shape
+    vis = visible_mask(obs)
+    obs_safe = torch.where(vis, obs, torch.full_like(obs, 1e6))
+    sqr, _ = chamfer.nn_distance(obs_safe.reshape(B * T, N, 3),
+                                 pred.reshape(B * T, -1, 3))
+    dist = torch.sqrt(torch.clamp(sqr.reshape(B, T * N), min=1e-12))
+    mask = vis[..., 0].reshape(B, T * N)
+    weighted, _ = rob.apply_robust_weighting(
+        dist, cfg.robust_loss, cfg.robust_tuning_const, mask=mask)
+    return 0.5 * (weighted * mask).sum(dim=1)
+
+
+def joints2d_loss(cfg: EnergyConfig, obs2d: torch.Tensor,
+                  joints3d: torch.Tensor, joints3d_extra: torch.Tensor,
+                  cam_f: torch.Tensor, cam_center: torch.Tensor
+                  ) -> torch.Tensor:
+    """Confidence^2-weighted Geman-McClure reprojection error of the
+    OpenPose joints (obs2d (B, T, 25, 3): x, y, confidence)."""
+    if cfg.smpl2op_map is None:
+        raise ValueError("joints2d_loss needs EnergyConfig.smpl2op_map")
+    B, T = obs2d.shape[:2]
+    full = torch.cat([joints3d, joints3d_extra], dim=2)
+    op = full[:, :, torch.as_tensor(cfg.smpl2op_map, device=full.device)]
+    pts = op.reshape(B * T, C.OP_NUM_JOINTS, 3)
+    eye = torch.eye(3, dtype=pts.dtype, device=pts.device).expand(
+        B * T, 3, 3)
+    uv = geo.perspective_projection(
+        pts, eye, torch.zeros_like(pts[:, 0]),
+        cam_f.repeat_interleave(T, dim=0),
+        cam_center.repeat_interleave(T, dim=0)
+    ).reshape(B, T, C.OP_NUM_JOINTS, 2)
+    conf = obs2d[..., 2:3]
+    if cfg.ignore_op_joints:
+        keep = torch.ones(C.OP_NUM_JOINTS, dtype=conf.dtype,
+                          device=conf.device)
+        keep[list(cfg.ignore_op_joints)] = 0.0
+        conf = conf * keep[:, None]
+    robust_sq = rob.gmof(uv - obs2d[..., :2], cfg.joints2d_sigma)
+    return _per_window(conf * conf * robust_sq)
+
+
+def floor_reg_loss(pred_floor3: torch.Tensor, obs_floor4: torch.Tensor
+                   ) -> torch.Tensor:
+    """Predicted floor (B, 3) close to the observed (B, 4) one."""
+    d = pred_floor3 - obs_floor4[..., :3] * obs_floor4[..., 3:]
+    return 0.5 * _per_window(d * d)
 
 
 def joints3d_smooth_loss(pred: torch.Tensor) -> torch.Tensor:
@@ -132,21 +215,35 @@ def contact_height_loss(contacts_conf: torch.Tensor, joints3d: torch.Tensor
     return _per_window(floor_diff * contacts_conf)
 
 
-def root_fit(w: StageWeights, observed: Dict[str, torch.Tensor],
+def root_fit(cfg: EnergyConfig, w: StageWeights,
+             observed: Dict[str, torch.Tensor],
              pred: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Stage-1 data term."""
+    """Data terms (the stage-1 objective)."""
     loss = torch.zeros(pred["joints3d"].shape[0], dtype=pred["joints3d"].dtype,
                        device=pred["joints3d"].device)
     if w.joints3d > 0 and "joints3d" in observed:
         loss = loss + w.joints3d * joints3d_loss(observed["joints3d"],
                                                  pred["joints3d"])
+    if w.verts3d > 0 and "verts3d" in observed:
+        loss = loss + w.verts3d * verts3d_loss(observed["verts3d"],
+                                               pred["verts3d"])
+    if w.points3d > 0 and "points3d" in observed:
+        loss = loss + w.points3d * points3d_loss(cfg, observed["points3d"],
+                                                 pred["points3d"])
+    if (w.joints2d > 0 and "joints2d" in observed
+            and "joints3d_extra" in pred):
+        loss = loss + w.joints2d * joints2d_loss(
+            cfg, observed["joints2d"], pred["joints3d"],
+            pred["joints3d_extra"], observed["cam_f"],
+            observed["cam_center"])
     return loss
 
 
-def smpl_fit(w: StageWeights, observed: Dict[str, torch.Tensor],
+def smpl_fit(cfg: EnergyConfig, w: StageWeights,
+             observed: Dict[str, torch.Tensor],
              pred: Dict[str, torch.Tensor], nsteps: int) -> torch.Tensor:
     """Stage-2 objective: data + pose/shape priors + smoothness."""
-    loss = root_fit(w, observed, pred)
+    loss = root_fit(cfg, w, observed, pred)
     if w.pose_prior > 0 and "latent_pose" in pred:
         loss = loss + w.pose_prior * pose_prior_loss(pred["latent_pose"])
     if w.shape_prior > 0 and "betas" in pred:
@@ -157,15 +254,18 @@ def smpl_fit(w: StageWeights, observed: Dict[str, torch.Tensor],
     return loss
 
 
-def motion_fit(w: StageWeights, observed: Dict[str, torch.Tensor],
-               pred: Dict[str, torch.Tensor], nsteps: int,
+def motion_fit(cfg: EnergyConfig, w: StageWeights,
+               observed: Dict[str, torch.Tensor],
+               pred: Dict[str, torch.Tensor],
+               cam_pred: Dict[str, torch.Tensor], nsteps: int,
                gmm: Optional[gmm_lib.GmmParams] = None,
                cond_prior: Optional[Tuple] = None,
                init_motion_scale: float = 1.0,
                gmm_terms: Optional[Tuple] = None) -> torch.Tensor:
-    """Stage-3 objective: stage-2 terms + motion/init priors +
-    consistency and contact terms."""
-    loss = smpl_fit(w, observed, pred, nsteps)
+    """Stage-3 objective: the stage-2 terms on the camera-frame prediction
+    `cam_pred`, the motion/init priors and the consistency and contact
+    terms on the prior-frame `pred`, and the floor term."""
+    loss = smpl_fit(cfg, w, observed, cam_pred, nsteps)
     if w.motion_prior > 0 and "latent_motion" in pred:
         loss = loss + w.motion_prior * motion_prior_loss(
             pred["latent_motion"], cond_prior)
@@ -190,4 +290,8 @@ def motion_fit(w: StageWeights, observed: Dict[str, torch.Tensor],
     if w.contact_height > 0 and "contacts_conf" in pred:
         loss = loss + w.contact_height * contact_height_loss(
             pred["contacts_conf"], pred["joints3d"])
+    if (w.floor_reg > 0 and "floor_plane" in cam_pred
+            and "floor_plane" in observed):
+        loss = loss + w.floor_reg * nsteps * floor_reg_loss(
+            cam_pred["floor_plane"], observed["floor_plane"])
     return loss

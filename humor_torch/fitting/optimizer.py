@@ -1,25 +1,31 @@
-"""3-stage test-time motion optimizer, joints3d modality (port of
-humor_tpu/fitting/optimizer.py).
+"""3-stage test-time motion optimizer (port of
+humor_tpu/fitting/optimizer.py): the joints3d fit and the PROX RGB-D fit
+(point cloud, 2D keypoints, floor plane).
 
-Fits SMPL shape and motion to observed 3D joints by optimizing in
-VPoser's pose latent space (stages 1-2) and HuMoR's motion latent space
-(stage 3):
+Fits SMPL shape and motion to the observations by optimizing in VPoser's
+pose latent space (stages 1-2) and HuMoR's motion latent space (stage 3):
 
   * stage 1: root translation/orientation only. Pose and shape are
     frozen, so the body is skinned once and each evaluation applies the
-    SMPL root identity p = R (base - j0) + j0 + trans;
+    SMPL root identity p = R (base - j0) + j0 + trans to every skinned
+    point (joints, keypoint vertices, the whole mesh for a point cloud);
   * stage 2: all per-frame variables, with pose/shape priors and joint
-    smoothness;
-  * stage 3: the initial state and the latent motion; every evaluation
-    rolls the frozen HuMoR CVAE out over the window through the fused
-    rollout kernels (ops/rollout_kernel.py), in three sub-phases
-    (tune the initial state on the first frames, freeze it, refine all).
+    smoothness; the floor plane stays frozen;
+  * stage 3: the initial state, the latent motion and the floor plane;
+    every evaluation rolls the frozen HuMoR CVAE out over the window
+    through the fused rollout kernels (ops/rollout_kernel.py), in three
+    sub-phases (tune the initial state on the first frames, freeze it,
+    refine all). With `optim_floor` the rollout runs in the prior frame
+    that the floor and the first frame define (cam2prior), and the
+    camera-frame prediction is an exact rigid map of the prior-frame one.
 
-Each L-BFGS line search evaluates its K candidate steps as one batch of
-K*B windows (see fitting/lbfgs.py); the rollout kernel then sees
-M = K*B rows. Not ported yet: the RGB/keypoint/PROX modalities (floor
-optimization, cam2prior, overlap terms), the zoom/hybrid searches,
-convergence early exit, multi-device sharding.
+A point-cloud observation ("points3d") makes every evaluation skin the
+whole mesh and search nearest neighbours (ops/chamfer.py, a CUDA kernel
+on the card). Each L-BFGS line search evaluates its K candidate steps as
+one batch of K*B windows (see fitting/lbfgs.py); the rollout kernel then
+sees M = K*B rows. Not ported yet: the overlap-consistency terms, the
+depth init from 2D bone lengths (a 2D fit without a point cloud), the
+zoom/hybrid searches, convergence early exit, multi-device sharding.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from humor_torch.body_model import constants as C
 from humor_torch.body_model import smpl as smpl_lib
 from humor_torch.device import resolve_device
 from humor_torch.fitting import energies as E
+from humor_torch.fitting import geometry as geo
 from humor_torch.fitting.lbfgs import make_mask, run_lbfgs
 from humor_torch.models import gmm as gmm_lib
 from humor_torch.models import humor as H
@@ -57,6 +64,7 @@ class TTOConfig:
                        motion_prior=7.5e-4, init_motion_prior=7.5e-4,
                        joint_consistency=100.0, bone_length=2000.0),
     )
+    energy: E.EnergyConfig = E.EnergyConfig()
     num_iters: Tuple[int, int, int] = (30, 70, 70)
     lbfgs_history: int = 10
     # "auto": "parallel" below 12 windows, "armijo" from 12; or one name
@@ -65,6 +73,7 @@ class TTOConfig:
     # line-search grid size; None/0 = clamp(128 // B, 4, 16)
     lbfgs_candidates: Optional[int] = 8
     data_fps: float = 30.0
+    optim_floor: bool = False
     stage3_tune_init_state: bool = True
     stage3_tune_init_num_frames: int = 15
     stage3_freeze_start: int = 30
@@ -115,17 +124,39 @@ def models_to(models: TTOModels, device) -> TTOModels:
 # SMPL over a sequence batch, velocities
 # ---------------------------------------------------------------------------
 
+def _keypt_ids(body: smpl_lib.SmplModel) -> np.ndarray:
+    return np.asarray([i for i in C.KEYPT_VERTS if i < body.num_verts],
+                      np.int64)
+
+
+def verts_mode_for(observed) -> str:
+    """The cheapest vertex set the energies read, by observed keys: 'full'
+    (a point cloud needs the whole mesh), 'keypt' (the 43 keypoint
+    vertices), 'none' (joints only)."""
+    if "points3d" in observed:
+        return "full"
+    if "verts3d" in observed:
+        return "keypt"
+    return "none"
+
+
+def batch_size_of(observed: Dict[str, torch.Tensor]) -> int:
+    """Window-batch size: every observation has the windows first."""
+    return next(iter(observed.values())).shape[0]
+
+
 def smpl_results(body: smpl_lib.SmplModel, trans: torch.Tensor,
                  root_orient: torch.Tensor, body_pose: torch.Tensor,
                  betas: torch.Tensor, verts: str = "none"
                  ) -> Dict[str, torch.Tensor]:
-    """One LBS pass over all B*T frames. verts: 'full' (all vertices),
-    'keypt' (the 43 keypoint vertices), 'none' (joints only)."""
+    """One LBS pass over all B*T frames. verts: 'full' (the whole mesh as
+    "points3d", its 43 keypoint vertices as "verts3d"), 'keypt' (only the
+    keypoint vertices, "verts3d"), 'none' (joints only, the default)."""
     B, T = trans.shape[:2]
     if verts == "full":
         vert_ids = None
     elif verts == "keypt":
-        vert_ids = np.asarray([i for i in C.KEYPT_VERTS if i < body.num_verts])
+        vert_ids = _keypt_ids(body)
     else:
         vert_ids = np.zeros((0,), np.int64)
     out = smpl_lib.forward(body, root_orient.reshape(B * T, 3),
@@ -135,7 +166,12 @@ def smpl_results(body: smpl_lib.SmplModel, trans: torch.Tensor,
     Jtr = out.Jtr.reshape(B, T, -1, 3)
     nj = C.NUM_SMPL_JOINTS
     res = {"joints3d": Jtr[:, :, :nj], "joints3d_extra": Jtr[:, :, nj:]}
-    if verts != "none":
+    if verts == "full":
+        v = out.v.reshape(B, T, -1, 3)
+        res["points3d"] = v
+        res["verts3d"] = v[:, :, torch.as_tensor(_keypt_ids(body),
+                                                 device=v.device)]
+    elif verts == "keypt":
         res["verts3d"] = out.v.reshape(B, T, -1, 3)
     return res
 
@@ -209,18 +245,36 @@ def _expand_contacts(logits: torch.Tensor):
     return conf, (conf > CONTACT_THRESH).to(conf9.dtype)
 
 
+def _key_frames(B: int, device) -> torch.Tensor:
+    return torch.zeros(B, dtype=torch.long, device=device)
+
+
 def rollout_latent_motion(models: TTOModels, weights: RK.RolloutWeights,
                           variables: Dict[str, torch.Tensor],
-                          latent_motion: torch.Tensor) -> Dict:
+                          latent_motion: torch.Tensor,
+                          cam2prior: Optional[Tuple] = None
+                          ) -> Tuple[Dict, Dict]:
     """Roll the initial-state variables (B, 1, .) forward through HuMoR
     with the latents (B, T-1, 48), canonicalizing the first input and
     returning the trajectory in the input frame, through the fused
-    rollout kernels."""
+    rollout kernels. With `cam2prior` (R, t, root height) the variables
+    are camera-frame and the rollout runs in the prior frame. Returns
+    (prior-frame dict, camera-frame trans/root_orient/pose_body), the
+    same frame when cam2prior is None."""
     B = variables["trans"].shape[0]
     Tm1 = latent_motion.shape[1]
     body_pose0 = vp.latent2pose(models.vposer_cfg, models.vposer,
                                 variables["latent_pose"])
     trans0, root0 = variables["trans"], variables["root_orient"]
+    keys = _key_frames(B, trans0.device)
+    if cam2prior is not None:
+        R, t, rh = cam2prior
+        prior = geo.apply_cam2prior(
+            trans0, root0, R, t, rh, keys,
+            smpl_root_joint_fn=lambda tr, ro: smpl_results(
+                models.body, tr, ro, body_pose0,
+                variables["betas"])["joints3d"][..., 0, 2])
+        trans0, root0 = prior["trans"], prior["root_orient"]
     joints0 = smpl_results(models.body, trans0, root0, body_pose0,
                            variables["betas"])["joints3d"]
     init_state = {
@@ -248,22 +302,45 @@ def rollout_latent_motion(models: TTOModels, weights: RK.RolloutWeights,
         "cond_prior": prior,
     }
     out["contacts_conf"], out["contacts"] = _expand_contacts(w["contacts"])
-    return out
+    if cam2prior is not None:
+        cam = geo.apply_cam2prior(out["trans"], out["root_orient"], R, t, rh,
+                                  keys, inverse=True)
+    else:
+        cam = {"trans": out["trans"], "root_orient": out["root_orient"]}
+    cam["pose_body"] = out["pose_body"]
+    return out, cam
 
 
 def init_variables(cfg: TTOConfig, models: TTOModels, batch_size: int,
-                   device) -> Dict[str, torch.Tensor]:
-    """Stage-1/2 variables, joints3d modality."""
+                   observed: Dict[str, torch.Tensor], device
+                   ) -> Dict[str, torch.Tensor]:
+    """Stage-1/2 variables. With `optim_floor` the floor plane (from the
+    observed one) is a variable; a point cloud sets each frame's
+    translation to the mean of its visible points."""
     B, T = batch_size, cfg.seq_len
     root = torch.zeros(B, T, 3, device=device)
     root[..., 0] = torch.pi
-    return {
+    variables = {
         "trans": torch.zeros(B, T, 3, device=device),
         "root_orient": root,
         "latent_pose": torch.zeros(B, T, models.vposer_cfg.latent_dim,
                                    device=device),
         "betas": torch.zeros(B, cfg.num_betas, device=device),
     }
+    if cfg.optim_floor and "floor_plane" in observed:
+        fp = observed["floor_plane"]
+        variables["floor_plane"] = fp[..., :3] * fp[..., 3:]
+    if "points3d" in observed:
+        pts = observed["points3d"]
+        vis = E.visible_mask(pts)
+        cnt = torch.clamp(vis[..., 0].sum(dim=2, keepdim=True), min=1)
+        variables["trans"] = torch.where(vis, pts, torch.zeros_like(
+            pts)).sum(dim=2) / cnt
+    elif "joints2d" in observed and "cam_f" in observed:
+        raise NotImplementedError(
+            "a 2D-keypoint fit without a point cloud needs the depth init "
+            "from bone lengths, which humor_torch does not port yet")
+    return variables
 
 
 def slice_observations(observed: Dict[str, torch.Tensor], nsteps: int):
@@ -299,47 +376,81 @@ def _pose(fm: FitModels, latent):
     return vp.latent2pose(fm.models.vposer_cfg, fm.models.vposer, latent)
 
 
-def stage1_objective(cfg: TTOConfig, fm: FitModels, vars_):
-    """Root-only data term. Pose and shape are frozen in stage 1, so the
-    body is skinned once (identity root, zero trans) and each evaluation
-    applies p = R_root (base - j0) + j0 + trans."""
+_RIGID_KEYS = ("joints3d", "joints3d_extra", "verts3d", "points3d")
+
+
+def stage1_objective(cfg: TTOConfig, fm: FitModels, vars_,
+                     verts: str = "none"):
+    """Root-only data terms. Pose and shape are frozen in stage 1, so the
+    body is skinned once (identity root, zero trans; `verts` as in
+    smpl_results) and each evaluation applies p = R_root (base - j0) + j0
+    + trans to every skinned point."""
     B = vars_["trans"].shape[0]
     body = fm.models.body
     with torch.no_grad():
         base = smpl_results(body, torch.zeros_like(vars_["trans"]),
                             torch.zeros_like(vars_["root_orient"]),
-                            _pose(fm, vars_["latent_pose"]), vars_["betas"])
+                            _pose(fm, vars_["latent_pose"]), vars_["betas"],
+                            verts=verts)
         j0b = smpl_lib.rest_root_joint(body, vars_["betas"])[:, None, None]
-        base_pts = base["joints3d"] - j0b
+        base_pts = {k: base[k] - j0b for k in _RIGID_KEYS if k in base}
     w1 = cfg.stage_weights[0]
+    tiled = {}
 
     def loss(v, obs):
         K = v["trans"].shape[0] // B
+        if K not in tiled:
+            tiled[K] = ({k: _tile(p, K) for k, p in base_pts.items()},
+                        _tile(j0b, K))
+        pts, j0 = tiled[K]
         R = transforms.aa_to_rotmat(v["root_orient"])
-        p = torch.einsum("btij,btnj->btni", R, _tile(base_pts, K))
-        pred = {"joints3d": p + _tile(j0b, K) + v["trans"][:, :, None]}
-        return E.root_fit(w1, obs, pred)
+        off = j0 + v["trans"][:, :, None]
+        pred = {k: torch.einsum("btij,btnj->btni", R, p) + off
+                for k, p in pts.items()}
+        return E.root_fit(cfg.energy, w1, obs, pred)
     return loss
 
 
 def stage2_objective(cfg: TTOConfig, fm: FitModels):
-    """Data term + pose/shape priors + joint smoothness."""
+    """Data terms + pose/shape priors + joint smoothness."""
     def loss(v, obs):
         pred = smpl_results(fm.models.body, v["trans"], v["root_orient"],
-                            _pose(fm, v["latent_pose"]), v["betas"])
+                            _pose(fm, v["latent_pose"]), v["betas"],
+                            verts=verts_mode_for(obs))
         pred["latent_pose"] = v["latent_pose"]
         pred["betas"] = v["betas"]
-        return E.smpl_fit(cfg.stage_weights[1], obs, pred, cfg.seq_len)
+        return E.smpl_fit(cfg.energy, cfg.stage_weights[1], obs, pred,
+                          cfg.seq_len)
     return loss
 
 
+def cam2prior_of(fm: FitModels, v) -> Tuple:
+    """(R, t, root height) of the camera-to-prior map at frame 0: only
+    frame 0 is decoded and skinned, all compute_cam2prior reads."""
+    m = fm.models
+    pose0 = _pose(fm, v["latent_pose"][:, :1])
+    joints0 = smpl_results(m.body, v["trans"][:, :1], v["root_orient"][:, :1],
+                           pose0, v["betas"])["joints3d"]
+    return geo.compute_cam2prior(v["floor_plane"], v["trans"][:, 0],
+                                 v["root_orient"][:, 0], joints0[:, 0])
+
+
 def stage3_setup(cfg: TTOConfig, fm: FitModels, vars_):
-    """Latent-motion inference + velocity estimation + the shrink to
-    the initial-state variables."""
+    """Latent-motion inference + velocity estimation (in the prior frame
+    under `optim_floor`) + the shrink to the initial-state variables."""
+    m = fm.models
+    pose = _pose(fm, vars_["latent_pose"])
+    trans, root = vars_["trans"], vars_["root_orient"]
+    if cfg.optim_floor:
+        R, t, rh = cam2prior_of(fm, vars_)
+        prior = geo.apply_cam2prior(
+            trans, root, R, t, rh, _key_frames(trans.shape[0], trans.device),
+            smpl_root_joint_fn=lambda tr, ro: smpl_results(
+                m.body, tr, ro, pose, vars_["betas"])["joints3d"][..., 0, 2])
+        trans, root = prior["trans"], prior["root_orient"]
     z, trans_vel, joints_vel, root_vel = _infer_and_velocities(
-        fm.models, vars_["trans"], vars_["root_orient"],
-        _pose(fm, vars_["latent_pose"]), vars_["betas"], cfg.data_fps)
-    return {
+        m, trans, root, pose, vars_["betas"], cfg.data_fps)
+    s3 = {
         "trans": vars_["trans"][:, :1],
         "root_orient": vars_["root_orient"][:, :1],
         "latent_pose": vars_["latent_pose"][:, :1],
@@ -349,21 +460,28 @@ def stage3_setup(cfg: TTOConfig, fm: FitModels, vars_):
         "joints_vel": joints_vel[:, :1],
         "root_orient_vel": root_vel[:, :1],
     }
+    if cfg.optim_floor:
+        s3["floor_plane"] = vars_["floor_plane"]
+    return s3
 
 
 def stage3_objective(fm: FitModels, weights3: E.StageWeights, nsteps: int,
-                     scale: float):
+                     scale: float, energy: E.EnergyConfig = E.EnergyConfig(),
+                     optim_floor: bool = False):
     """Stage-3 objective over the first `nsteps` frames: the rollout of
-    the initial state under the latents, then the stage-2 terms and the
-    motion, initial-state, consistency and contact terms."""
+    the initial state under the latents, then the stage-2 terms (in the
+    camera frame) and the motion, initial-state, consistency, contact and
+    floor terms (in the prior frame)."""
     m = fm.models
 
     def loss(v, obs):
+        c2p = cam2prior_of(fm, v) if optim_floor else None
         zm = v["latent_motion"][:, : nsteps - 1]
-        prior_out = rollout_latent_motion(m, fm.rollout_weights, v, zm)
+        prior_out, _ = rollout_latent_motion(m, fm.rollout_weights, v, zm,
+                                             cam2prior=c2p)
         pred = smpl_results(m.body, prior_out["trans"],
                             prior_out["root_orient"], prior_out["pose_body"],
-                            v["betas"])
+                            v["betas"], verts=verts_mode_for(obs))
         if weights3.pose_prior > 0:
             pred["latent_pose"] = vp.pose2latent(m.vposer_cfg, m.vposer,
                                                  prior_out["pose_body"])
@@ -373,8 +491,26 @@ def stage3_objective(fm: FitModels, weights3: E.StageWeights, nsteps: int,
             pred[k] = v[k]
         pred["joints3d_rollout"] = prior_out["joints"]
         pred["contacts_conf"] = prior_out["contacts_conf"]
-        return E.motion_fit(weights3, slice_observations(obs, nsteps), pred,
-                            nsteps, gmm=m.init_gmm,
+        if optim_floor:
+            # The camera-frame prediction is an exact rigid map of the
+            # prior-frame one: SMPL turns the body about the shaped rest
+            # root joint j0, so the inverse cam2prior parameters move
+            # every point by p_cam = R^T (p - trans[:, 0] - j0) + j0 - t
+            # (no second skinning pass).
+            R, t, _ = c2p
+            j0 = smpl_lib.rest_root_joint(m.body, v["betas"])
+            shift = (prior_out["trans"][:, 0] + j0)[:, None, None]
+            off = (j0 - t)[:, None, None]
+            cam_pred = {k: torch.einsum("bji,btnj->btni", R, pred[k] - shift)
+                        + off for k in _RIGID_KEYS if k in pred}
+            for k in ("latent_pose", "betas"):
+                if k in pred:
+                    cam_pred[k] = pred[k]
+            cam_pred["floor_plane"] = v["floor_plane"]
+        else:
+            cam_pred = pred
+        return E.motion_fit(energy, weights3, slice_observations(obs, nsteps),
+                            pred, cam_pred, nsteps, gmm=m.init_gmm,
                             cond_prior=prior_out["cond_prior"],
                             init_motion_scale=scale, gmm_terms=fm.gmm_terms)
     return loss
@@ -408,8 +544,11 @@ def stage3_phases(cfg: TTOConfig):
 
 def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
     """A reusable fit `run(observed) -> TTOResult` on `device` (the GPU
-    unless the caller asks for the CPU). `observed` holds "joints3d"
-    (B, T, 22, 3), inf where a joint is missing."""
+    unless the caller asks for the CPU). `observed` holds either
+    "joints3d" (B, T, 22, 3), inf where a joint is missing, or a PROX
+    RGB-D observation: "points3d" (B, T, N, 3) inf-padded, "joints2d"
+    (B, T, 25, 3) with confidences, "cam_f" and "cam_center" (B, 2) and
+    "floor_plane" (B, 4), fitted with `cfg.optim_floor`."""
     dev = resolve_device(device)
     fm = prepare_models(models, dev)
 
@@ -419,7 +558,7 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
         line-search candidates folded into the window batch."""
         if iters == 0:
             return vars_, torch.zeros(0, device=dev)
-        B = observed["joints3d"].shape[0]
+        B = batch_size_of(observed)
         ls = cfg.lbfgs_linesearch
         if isinstance(ls, (tuple, list)):
             ls = ls[stage]
@@ -463,18 +602,19 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
                 t_last[0] = now
 
         observed = {k: v.to(dev) for k, v in observed.items()}
-        B = observed["joints3d"].shape[0]
+        B = batch_size_of(observed)
         losses, per_stage = {}, {}
-        vars_ = init_variables(cfg, fm.models, B, dev)
+        vars_ = init_variables(cfg, fm.models, B, observed, dev)
         vars_, losses["stage1"] = _lbfgs(
-            stage1_objective(cfg, fm, vars_), vars_, cfg.num_iters[0],
-            observed, lambda k: k in ("trans", "root_orient"), 0)
+            stage1_objective(cfg, fm, vars_, verts_mode_for(observed)),
+            vars_, cfg.num_iters[0], observed,
+            lambda k: k in ("trans", "root_orient"), 0)
         with torch.no_grad():
             per_stage["stage1"] = export(vars_)
         mark("stage1")
         vars_, losses["stage2"] = _lbfgs(
             stage2_objective(cfg, fm), vars_, cfg.num_iters[1], observed,
-            lambda k: True, 1)
+            lambda k: k != "floor_plane", 1)
         with torch.no_grad():
             per_stage["stage2"] = export(vars_)
         mark("stage2")
@@ -483,26 +623,34 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
         mark("stage3_setup")
         hist3 = []
         for wts, nsteps, scale, n, trainable in stage3_phases(cfg):
-            s3, h = _lbfgs(stage3_objective(fm, wts, nsteps, scale), s3, n,
-                           observed, trainable, 2)
+            s3, h = _lbfgs(stage3_objective(fm, wts, nsteps, scale,
+                                            cfg.energy, cfg.optim_floor),
+                           s3, n, observed, trainable, 2)
             hist3.append(h)
         losses["stage3"] = torch.cat(hist3)
         mark("stage3")
         with torch.no_grad():
-            prior_out = rollout_latent_motion(fm.models, fm.rollout_weights,
-                                              s3, s3["latent_motion"])
+            c2p = cam2prior_of(fm, s3) if cfg.optim_floor else None
+            prior_out, cam_out = rollout_latent_motion(
+                fm.models, fm.rollout_weights, s3, s3["latent_motion"],
+                cam2prior=c2p)
             m = fm.models
             final = {
-                "trans": prior_out["trans"],
-                "root_orient": prior_out["root_orient"],
-                "pose_body": prior_out["pose_body"],
+                "trans": cam_out["trans"],
+                "root_orient": cam_out["root_orient"],
+                "pose_body": cam_out["pose_body"],
                 "betas": s3["betas"],
                 "latent_motion": s3["latent_motion"],
                 "latent_pose": vp.pose2latent(m.vposer_cfg, m.vposer,
-                                              prior_out["pose_body"]),
+                                              cam_out["pose_body"]),
+                "prior_trans": prior_out["trans"],
+                "prior_root_orient": prior_out["root_orient"],
                 "joints3d_rollout": prior_out["joints"],
                 "contacts": prior_out["contacts"],
             }
+            if cfg.optim_floor:
+                final["floor_plane"] = geo.parse_floor_plane(
+                    s3["floor_plane"])
         per_stage["stage3"] = {k: final[k] for k in
                                ("trans", "root_orient", "pose_body", "betas")}
         mark("final")

@@ -1,5 +1,7 @@
-"""The fused-rollout CUDA kernels against their plain PyTorch versions
-(humor_torch/ops/rollout_kernel.py), full width, M=3 rows, T=6 steps.
+"""The CUDA kernels against their plain PyTorch versions: the fused
+rollout (humor_torch/ops/rollout_kernel.py) at full width, M=3 rows, T=6
+steps, and the nearest neighbour (humor_torch/ops/chamfer.py) at sizes
+off its block and tile multiples.
 The kernels have no CPU mode, so these tests skip without a GPU; this
 file imports no JAX, so it also runs on a machine that has none (skip
 tests/conftest.py there, which sets up JAX):
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from humor_torch.models import humor as H
+from humor_torch.ops import chamfer as CH
 from humor_torch.ops import rollout_kernel as RK
 from humor_torch.ops import transforms as TT
 
@@ -90,3 +93,39 @@ def test_kernel_wrapper_checks_inputs():
     w = RK.RolloutWeights(H.init_params(H.HumorConfig(), g), "cpu")
     with pytest.raises(ValueError):
         RK._check_inputs(w, {"x": torch.zeros(2, dtype=torch.float64)})
+
+
+@pytest.mark.cuda
+def test_nn_kernel_matches_plain():
+    """Nearest neighbour, 5 clouds x 1031 queries x 2053 points, the last
+    31 queries at 1e6, a duplicated point. Distances within 1e-5 abs on
+    visible queries; an index may differ only where the two chosen
+    points' distances lie within 1e-5 (a near-tie in float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.RandomState(10)
+    x = rng.randn(5, 1031, 3).astype(np.float32)
+    y = rng.randn(5, 2053, 3).astype(np.float32)
+    x[:, 1000:] = 1e6
+    y[:, 1500] = y[:, 7]
+    xc, yc = torch.tensor(x).cuda(), torch.tensor(y).cuda()
+    n0 = CH.launches["nn_distance"]
+    d_k, i_k = CH.nn_forward(xc, yc)
+    assert CH.launches["nn_distance"] == n0 + 1
+    d_p, i_p = CH.nn_distance_plain(xc, yc)
+    d_k, i_k, d_p, i_p = (t.cpu().numpy() for t in (d_k, i_k, d_p, i_p))
+    np.testing.assert_allclose(d_k[:, :1000], d_p[:, :1000], atol=1e-5,
+                               rtol=0)
+    q = x[:, :1000].astype(np.float64)
+    pick = lambda i: np.take_along_axis(y, i[..., None].astype(np.int64), 1)
+    gap = np.abs(((q - pick(i_k[:, :1000])) ** 2).sum(-1)
+                 - ((q - pick(i_p[:, :1000])) ** 2).sum(-1))
+    assert np.all(gap <= 1e-5)
+    assert np.all((i_k >= 0) & (i_k < 2053))
+
+
+def test_nn_wrapper_checks_inputs():
+    """The nearest-neighbour wrapper refuses a float64 cloud."""
+    x = torch.zeros(1, 4, 3, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        CH.nn_forward(x, torch.zeros(1, 5, 3))

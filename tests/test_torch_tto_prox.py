@@ -1,0 +1,398 @@
+"""The PROX RGB-D fit of humor_torch against humor_tpu on the CPU: a
+64-point cloud per frame (1 cm noise, outliers, inf padding), projected
+2D keypoints and a floor plane, B=2 windows of T=8 frames on the
+256-vertex synthetic body, fit_proxd.cfg's stage weights with bisquare
+weighting and `optim_floor`. Each stage objective (value and gradient at
+the same variables), the stage-3 setup with cam2prior, the variable
+init, the SMPL identity pins the fit relies on (now with the whole mesh),
+and the whole runner.
+
+Tolerances: objective values rtol 1e-4; gradients 1e-3 of their max per
+variable; setup outputs atol 3e-4, rtol 1e-4 (float32 summation order
+through SMPL, VPoser and a 7-step rollout, as test_torch_tto.py); the
+identity pins 2e-5 (the JAX pins' own); the whole runner: loss histories
+rtol 1e-4, final outputs 5e-3 abs (see its test).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from humor_tpu.body_model import smpl as jsmpl
+from humor_tpu.fitting import energies as JE
+from humor_tpu.fitting import geometry as JG
+from humor_tpu.fitting import optimizer as JO
+from humor_tpu.models import vposer as jvp
+
+from humor_torch import convert
+from humor_torch.body_model import smpl as tsmpl
+from humor_torch.fitting import energies as TE
+from humor_torch.fitting import geometry as TG
+from humor_torch.fitting import optimizer as TO
+from humor_torch.models import vposer as tvp
+from humor_torch.ops import transforms as TT
+
+from test_torch_tto import _compare, _j, _t, models  # noqa: F401
+
+torch.set_num_threads(2)
+
+B, T, NPTS = 2, 8, 64
+ITERS = (3, 3, 3)
+SMPL2OP = tuple(i % 22 for i in range(25))
+CAM_F = np.tile([[1060.5, 1060.4]], (B, 1)).astype(np.float32)
+CAM_C = np.tile([[951.3, 536.8]], (B, 1)).astype(np.float32)
+FLOOR = np.tile([[0.0, 1.0, 0.0, 1.5]], (B, 1)).astype(np.float32)
+
+
+def _weights(mod):
+    """configs/fit_proxd.cfg's stage weights."""
+    w12 = mod.StageWeights(points3d=1.0, joints2d=0.001, pose_prior=0.1,
+                           shape_prior=0.034, joints3d_smooth=100.0)
+    return (w12, w12, mod.StageWeights(
+        points3d=1.0, joints2d=0.001, shape_prior=0.034, motion_prior=0.075,
+        init_motion_prior=0.075, joint_consistency=100.0, bone_length=2000.0,
+        contact_vel=100.0, contact_height=10.0, floor_reg=1.0))
+
+
+def _cfg(O, E):
+    return O.TTOConfig(
+        seq_len=T, stage_weights=_weights(E),
+        energy=E.EnergyConfig(robust_loss="bisquare",
+                              robust_tuning_const=4.6851,
+                              smpl2op_map=SMPL2OP),
+        num_iters=ITERS, optim_floor=True, stage3_tune_init_num_frames=5,
+        stage3_freeze_start=1, stage3_freeze_end=2)
+
+
+CFG_J, CFG_T = _cfg(JO, JE), _cfg(TO, TE)
+
+
+@pytest.fixture(scope="module")
+def observed(models):
+    """A VPoser pose sequence ~2.5 m in front of the camera (-y up): its
+    OpenPose joints projected with 2 px noise, and per frame 64 of its
+    mesh vertices with 1 cm noise, 2 pushed 0.5 m off as outliers and the
+    last 6 rows inf (a short cloud's padding)."""
+    jm, _ = models
+    rng = np.random.RandomState(0)
+    z = jnp.asarray(rng.randn(B, T, 32) * 0.3, jnp.float32)
+    pose = jvp.latent2pose(jm.vposer_cfg, jm.vposer, z)
+    trans = jnp.asarray(rng.randn(B, T, 3) * 0.1 + [0.0, 0.3, 2.5],
+                        jnp.float32)
+    ro = jnp.asarray(np.tile(rng.randn(B, 1, 3) * 0.2, (1, T, 1)),
+                     jnp.float32)
+    gt = JO.smpl_results(jm.body, trans, ro, pose, jnp.zeros((B, 16)),
+                         verts="full")
+    full = jnp.concatenate([gt["joints3d"], gt["joints3d_extra"]], axis=2)
+    op3d = full[:, :, np.asarray(SMPL2OP)].reshape(B * T, 25, 3)
+    uv = JG.perspective_projection(
+        op3d, jnp.broadcast_to(jnp.eye(3), (B * T, 3, 3)),
+        jnp.zeros((B * T, 3)), jnp.repeat(CAM_F, T, 0),
+        jnp.repeat(CAM_C, T, 0))
+    uv = np.asarray(uv).reshape(B, T, 25, 2) + rng.randn(B, T, 25, 2) * 2.0
+    verts = np.asarray(gt["points3d"])
+    pts = np.empty((B, T, NPTS, 3), np.float32)
+    for b in range(B):
+        for t in range(T):
+            sel = rng.choice(verts.shape[2], NPTS, replace=False)
+            pts[b, t] = verts[b, t, sel] + rng.randn(NPTS, 3) * 0.01
+            off = rng.randn(2, 3)
+            pts[b, t, :2] += 0.5 * off / np.linalg.norm(off, axis=1,
+                                                        keepdims=True)
+    pts[:, :, NPTS - 6:] = np.inf
+    return {"points3d": pts,
+            "joints2d": np.concatenate([uv, np.ones((B, T, 25, 1))],
+                                       -1).astype(np.float32),
+            "cam_f": CAM_F, "cam_center": CAM_C, "floor_plane": FLOOR}
+
+
+def _stage12_vars(seed):
+    rng = np.random.RandomState(seed)
+    root = rng.randn(B, T, 3) * 0.3
+    root[..., 0] += np.pi
+    return {"trans": rng.randn(B, T, 3) * 0.1 + [0.0, 0.3, 2.5],
+            "root_orient": root, "latent_pose": rng.randn(B, T, 32) * 0.3,
+            "betas": rng.randn(B, 16) * 0.1,
+            "floor_plane": FLOOR[:, :3] * FLOOR[:, 3:]
+            + rng.randn(B, 3) * 0.05}
+
+
+def test_helpers_match_jax(models, observed):
+    """verts_mode_for, batch_size_of, slice_observations (points3d and
+    joints2d are time-indexed, the camera and floor are not), and
+    smpl_results' 'full' keys: the mesh as points3d, its keypoint
+    vertices as verts3d."""
+    jm, tm = models
+    obs_t = _t(observed)
+    assert TO.verts_mode_for(obs_t) == JO.verts_mode_for(observed) == "full"
+    assert TO.verts_mode_for({"verts3d": 0}) == "keypt"
+    assert TO.verts_mode_for({"joints3d": 0}) == "none"
+    assert TO.batch_size_of(obs_t) == JO.batch_size_of(_j(observed)) == B
+    sl = TO.slice_observations(obs_t, 3)
+    ref = JO.slice_observations(_j(observed), 3)
+    for k in observed:
+        assert tuple(sl[k].shape) == tuple(ref[k].shape), k
+    v = _stage12_vars(11)
+    jv, tv = _j(v), _t(v)
+    pose_j = jvp.latent2pose(jm.vposer_cfg, jm.vposer, jv["latent_pose"])
+    pose_t = tvp.latent2pose(tm.vposer_cfg, tm.vposer, tv["latent_pose"])
+    for mode in ("full", "keypt", "none"):
+        r = JO.smpl_results(jm.body, jv["trans"], jv["root_orient"], pose_j,
+                            jv["betas"], verts=mode)
+        with torch.no_grad():
+            o = TO.smpl_results(tm.body, tv["trans"], tv["root_orient"],
+                                pose_t, tv["betas"], verts=mode)
+        assert set(o) == set(r), mode
+        for k in r:
+            np.testing.assert_allclose(o[k].numpy(), np.asarray(r[k]),
+                                       atol=1e-4, err_msg=f"{mode} {k}")
+
+
+def test_init_variables_match_jax(models, observed):
+    """The point-cloud translation init (mean of visible points) and the
+    floor-plane variable."""
+    jm, tm = models
+    ref = JO.init_variables(CFG_J, jm, B, _j(observed))
+    out = TO.init_variables(CFG_T, tm, B, _t(observed), "cpu")
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+    with pytest.raises(NotImplementedError):
+        TO.init_variables(CFG_T, tm, B, {k: v for k, v in _t(
+            observed).items() if k != "points3d"}, "cpu")
+
+
+def test_stage1_objective_matches(models, observed):
+    """The port's skin-once rigid path over the whole mesh against JAX's
+    full LBS objective (point cloud + 2D keypoints)."""
+    jm, tm = models
+    v = _stage12_vars(1)
+    obs_j = _j(observed)
+
+    def jloss(vv):
+        pred, _ = JO._stage12_pred(jm, vv, obs_j)
+        return JE.root_fit(CFG_J.energy, CFG_J.stage_weights[0], obs_j,
+                           pred)[0]
+
+    jval, jgrad = jax.jit(jax.value_and_grad(jloss))(_j(v))
+    tv = _t(v)
+    fn = TO.stage1_objective(CFG_T, TO.prepare_models(tm, "cpu"), tv, "full")
+    obs_t = _t(observed)
+    _compare(jval, jgrad, lambda vv: fn(vv, obs_t), tv,
+             ("trans", "root_orient"))
+
+
+def test_stage2_objective_matches(models, observed):
+    jm, tm = models
+    v = _stage12_vars(2)
+    obs_j = _j(observed)
+
+    def jloss(vv):
+        pred, _ = JO._stage12_pred(jm, vv, obs_j)
+        return JE.smpl_fit(CFG_J.energy, CFG_J.stage_weights[1], obs_j, pred,
+                           T)[0]
+
+    jval, jgrad = jax.jit(jax.value_and_grad(jloss))(_j(v))
+    fn = TO.stage2_objective(CFG_T, TO.prepare_models(tm, "cpu"))
+    obs_t = _t(observed)
+    _compare(jval, jgrad, lambda vv: fn(vv, obs_t), _t(v),
+             ("trans", "root_orient", "latent_pose", "betas"))
+
+
+def _jax_cam2prior(jm, v):
+    """optimizer.make_runner's _cam2prior_of."""
+    bp0 = jvp.latent2pose(jm.vposer_cfg, jm.vposer, v["latent_pose"][:, :1])
+    cam = JO.smpl_results(jm.body, v["trans"][:, :1], v["root_orient"][:, :1],
+                          bp0, v["betas"], verts="none")
+    return JG.compute_cam2prior(v["floor_plane"], v["trans"][:, 0],
+                                v["root_orient"][:, 0], cam["joints3d"][:, 0])
+
+
+def _jax_stage3_setup(jm, v):
+    """optimizer.make_runner's _stage3_setup_body with optim_floor."""
+    body_pose = jvp.latent2pose(jm.vposer_cfg, jm.vposer, v["latent_pose"])
+    R, t, rh = _jax_cam2prior(jm, v)
+    pr = JG.apply_cam2prior(
+        v["trans"], v["root_orient"], R, t, rh, jnp.zeros((B,), jnp.int32),
+        smpl_root_joint_fn=lambda tr, ro: JO.smpl_results(
+            jm.body, tr, ro, body_pose, v["betas"],
+            verts="none")["joints3d"][..., 0, 2])
+    z = JO.infer_latent_motion(jm, pr["trans"], pr["root_orient"], body_pose,
+                               v["betas"], CFG_J.data_fps)
+    tv, jv, rv = JO.estimate_velocities(jm.body, pr["trans"],
+                                        pr["root_orient"], body_pose,
+                                        v["betas"], CFG_J.data_fps)
+    return {"trans": v["trans"][:, :1], "root_orient": v["root_orient"][:, :1],
+            "latent_pose": v["latent_pose"][:, :1], "betas": v["betas"],
+            "latent_motion": z, "trans_vel": tv[:, :1],
+            "joints_vel": jv[:, :1], "root_orient_vel": rv[:, :1],
+            "floor_plane": v["floor_plane"]}
+
+
+def test_stage3_setup_matches(models):
+    """Latent inference and velocities in the prior frame that cam2prior
+    gives (floor plane + frame 0)."""
+    jm, tm = models
+    v = _stage12_vars(3)
+    ref = jax.jit(lambda vv: _jax_stage3_setup(jm, vv))(_j(v))
+    with torch.no_grad():
+        out = TO.stage3_setup(CFG_T, TO.prepare_models(tm, "cpu"), _t(v))
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   atol=3e-4, rtol=1e-4, err_msg=k)
+
+
+def _jax_stage3_loss(jm, weights, nsteps, scale):
+    """optimizer.make_runner's stage3_loss_fn with optim_floor."""
+    def loss(v, observed):
+        c2p = _jax_cam2prior(jm, v)
+        zm = v["latent_motion"][:, : nsteps - 1]
+        prior_out, _ = JO.rollout_latent_motion(CFG_J, jm, v, zm,
+                                                cam2prior=c2p)
+        pred = JO.smpl_results(jm.body, prior_out["trans"],
+                               prior_out["root_orient"],
+                               prior_out["pose_body"], v["betas"],
+                               verts=JO.verts_mode_for(observed))
+        pred["latent_pose"] = jvp.pose2latent(jm.vposer_cfg, jm.vposer,
+                                              prior_out["pose_body"])
+        pred["betas"] = v["betas"]
+        pred["latent_motion"] = zm
+        for k in ("joints_vel", "trans_vel", "root_orient_vel"):
+            pred[k] = v[k]
+        pred["joints3d_rollout"] = prior_out["joints"]
+        pred["contacts_conf"] = prior_out["contacts_conf"]
+        R, t, _ = c2p
+        j0 = jsmpl.rest_root_joint(jm.body, v["betas"])
+        shift = (prior_out["trans"][:, 0] + j0)[:, None, None]
+        off = (j0 - t)[:, None, None]
+        cam_pred = {k: jnp.einsum("bji,btnj->btni", R, pred[k] - shift,
+                                  precision=jax.lax.Precision.HIGHEST) + off
+                    for k in ("joints3d", "joints3d_extra", "verts3d",
+                              "points3d")}
+        cam_pred["latent_pose"] = pred["latent_pose"]
+        cam_pred["betas"] = v["betas"]
+        cam_pred["floor_plane"] = v["floor_plane"]
+        obs = JO.slice_observations(observed, nsteps)
+        return JE.motion_fit(CFG_J.energy, weights, obs, pred, cam_pred,
+                             nsteps, gmm=jm.init_gmm,
+                             cond_prior=prior_out["cond_prior"],
+                             init_motion_scale=scale)[0]
+    return loss
+
+
+@pytest.mark.parametrize("phase", ["tune_init", "full"])
+def test_stage3_objective_matches(models, observed, phase):
+    """Stage 3 with cam2prior in the closure, the rigid camera map and
+    every fit_proxd term, through the rollout's autograd Function."""
+    jm, tm = models
+    base = jax.jit(lambda vv: _jax_stage3_setup(jm, vv))(
+        _j(_stage12_vars(4)))
+    v = {k: np.asarray(x) for k, x in base.items()}
+    nsteps, scale = (5, 1.0) if phase == "tune_init" else (T, T / 5.0)
+    obs_j = _j(observed)
+    jval, jgrad = jax.jit(jax.value_and_grad(
+        lambda vv: _jax_stage3_loss(jm, CFG_J.stage_weights[2], nsteps,
+                                    scale)(vv, obs_j)))(_j(v))
+    fn = TO.stage3_objective(TO.prepare_models(tm, "cpu"),
+                             CFG_T.stage_weights[2], nsteps, scale,
+                             CFG_T.energy, optim_floor=True)
+    obs_t = _t(observed)
+    _compare(jval, jgrad, lambda vv: fn(vv, obs_t), _t(v), tuple(v))
+
+
+def _skin_inputs(tm, seed):
+    rng = np.random.RandomState(seed)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32))
+    betas = f(rng.randn(B, 16) * 0.5)
+    trans, ro = f(rng.randn(B, T, 3)), f(rng.randn(B, T, 3) * 0.6)
+    pose = tvp.latent2pose(tm.vposer_cfg, tm.vposer,
+                             f(rng.randn(B, T, 32) * 0.3))
+    return rng, f, betas, trans, ro, pose
+
+
+def test_stage1_rigid_pred_matches_lbs(models):
+    """Port of tests/test_tto.py::test_stage1_rigid_pred_matches_lbs over
+    the whole mesh: p = R_root (base - j0) + j0 + trans."""
+    _, tm = models
+    _, _, betas, trans, ro, pose = _skin_inputs(tm, 7)
+    with torch.no_grad():
+        direct = TO.smpl_results(tm.body, trans, ro, pose, betas, "full")
+        base = TO.smpl_results(tm.body, torch.zeros_like(trans),
+                               torch.zeros_like(ro), pose, betas, "full")
+        j0 = tsmpl.rest_root_joint(tm.body, betas)[:, None, None]
+        R = TT.aa_to_rotmat(ro)
+        for key in ("joints3d", "verts3d", "points3d"):
+            fast = torch.einsum("btij,btnj->btni", R, base[key] - j0) \
+                + j0 + trans[:, :, None]
+            np.testing.assert_allclose(fast.numpy(), direct[key].numpy(),
+                                       atol=2e-5, err_msg=key)
+
+
+def test_cam_frame_rigid_map(models):
+    """Port of tests/test_tto_rgb.py::test_cam_frame_rigid_map over the
+    whole mesh: with the inverse cam2prior parameters, every skinned
+    point obeys p_cam = R^T (p - trans[:, 0] - j0) + j0 - t."""
+    _, tm = models
+    rng, f, betas, trans, ro, pose = _skin_inputs(tm, 3)
+    R = TT.aa_to_rotmat(f(rng.randn(B, 3)))
+    t, rh = f(rng.randn(B, 3)), f(rng.rand(B, 1))
+    with torch.no_grad():
+        cam = TG.apply_cam2prior(trans, ro, R, t, rh,
+                                 torch.zeros(B, dtype=torch.long),
+                                 inverse=True)
+        direct = TO.smpl_results(tm.body, cam["trans"], cam["root_orient"],
+                                 pose, betas, "full")
+        prior = TO.smpl_results(tm.body, trans, ro, pose, betas, "full")
+        j0 = tsmpl.rest_root_joint(tm.body, betas)
+        shift = (trans[:, 0] + j0)[:, None, None]
+        off = (j0 - t)[:, None, None]
+        for key in ("joints3d", "verts3d", "points3d"):
+            mapped = torch.einsum("bji,btnj->btni", R, prior[key] - shift) \
+                + off
+            np.testing.assert_allclose(mapped.numpy(), direct[key].numpy(),
+                                       atol=2e-5, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def damped_models(models):
+    """The same models with HuMoR's decoder output layer scaled by 0.1.
+    Under fit_proxd's stage-3 weights (bone length 2000, consistency 100)
+    the random-weight rollout makes the stage-3 energy ~2e5 and each
+    L-BFGS step amplifies float32 differences: the undamped runners'
+    histories agree to 1e-4 but their final poses part by ~0.06 (measured
+    on the CPU). The damped chain keeps the whole-runner check tight."""
+    jm, _ = models
+    last = jm.humor["decoder"][-1]
+    humor = dict(jm.humor, decoder=jm.humor["decoder"][:-1] + [
+        dict(last, w=last["w"] * 0.1, b=last["b"] * 0.1)])
+    jm = jm._replace(humor=humor)
+    tm = models[1]._replace(humor=convert.params_tree(
+        jax.tree_util.tree_map(np.asarray, humor)))
+    return jm, tm
+
+
+def test_runner_matches_jax(damped_models, observed):
+    """Both runners end to end on the PROX observation: per-iteration
+    loss histories (rtol 1e-4) and the final camera-frame outputs, the
+    prior-frame trajectory and the parsed floor plane (5e-3 abs: the
+    stage-2 pose already differs by 7e-4, measured, and the rollout and
+    pose2latent carry that to 3e-3)."""
+    jm, tm = damped_models
+    rj = JO.make_runner(CFG_J, jm)(_j(observed))
+    rt = TO.make_runner(CFG_T, tm, device="cpu")(_t(observed))
+    for st, n in zip(("stage1", "stage2", "stage3"), ITERS):
+        assert rt.losses[st].shape == (n,), st
+        np.testing.assert_allclose(rt.losses[st].numpy(),
+                                   np.asarray(rj.losses[st]), rtol=1e-4,
+                                   err_msg=st)
+    for k in ("trans", "root_orient", "pose_body", "betas", "latent_motion",
+              "prior_trans", "prior_root_orient", "joints3d_rollout",
+              "contacts", "floor_plane"):
+        np.testing.assert_allclose(rt.final[k].numpy(),
+                                   np.asarray(rj.final[k]), atol=5e-3,
+                                   err_msg=k)
+    assert tuple(rt.final["floor_plane"].shape) == (B, 4)
