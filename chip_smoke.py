@@ -19,9 +19,11 @@ Phases, each of which fails the run (non-zero exit) on error:
      the unscaled weights. The nearest-neighbour kernel at one
      line-search candidate's slice of the PROX fit (120 clouds x 4096
      queries x 6890 points, 10% of the queries at 1e6 as the energy puts
-     missing points), on duplicated points (first index) and at prime
-     sizes; timed with its plain version at the fit's full
-     (960, 4096, 6890);
+     missing points), in the reverse direction (6890 mesh queries into
+     the 4096-point cloud), on duplicated points (first index), at prime
+     sizes and at the edges of its chunks, tiles and blocks
+     (nn_edge_sizes()); timed at the fit's full (960, 4096, 6890), with its
+     plain version, and at stage 3's (240, 4096, 6890);
   3. run the joints3d 3-stage test-time fit (B=2 windows x 60 frames,
      L-BFGS iterations 30/70/70, the bench_tto joints3d weights) on
      seeded random weights and a seeded synthetic body with 6890
@@ -32,9 +34,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      RGB-D fit (B=2 x 60, configs/fit_proxd.cfg's weights, bisquare
      weighting, the floor plane optimized, 30/80/70) on a seeded
      4096-point cloud per frame, 2D keypoints and a floor; check the
-     same as for phase 3, the floor plane's shape, and that all three
-     kernels were launched by it; print the mean distance from the
-     visible points to the stage-1 and stage-2 meshes;
+     same as for phase 3, the floor plane's shape, that all three
+     kernels were launched by it and the nearest neighbour once per
+     evaluation, and that the mean distance from the visible points to
+     the stage-1 and stage-2 meshes is within C2M_LIMITS;
   5. run the PROX fit at reduced iterations once plainly and once under
      torch.profiler, and print the device-busy share of the wall time
      and the kernels with the most device time.
@@ -54,6 +57,11 @@ B, T = 2, 60
 NUM_ITERS = (30, 70, 70)
 PROX_ITERS = (30, 80, 70)      # configs/fit_proxd.cfg
 PROFILE_ITERS = (5, 10, 10)
+# one nearest-neighbour launch per evaluation: the initial one and one per
+# iteration of stages 1 and 2 and of stage 3's three phases (30 + 25 + 15
+# iterations at the freeze points 30 and 55)
+PROX_NN_LAUNCHES = sum(PROX_ITERS) + 5
+C2M_LIMITS = (0.16, 0.08)      # cloud to mesh (m) after stages 1 and 2
 K_CAND = 8                     # line-search candidates
 M_STAGE3 = K_CAND * B
 T_ROLL = T - 1
@@ -263,10 +271,38 @@ def compare_nn(name, x, y, n_vis, first_index=None):
     return res
 
 
+def nn_design():
+    """The nearest-neighbour kernel's sizes as csrc/nn_distance.cu sets
+    them: Q (queries a thread), BLOCK (threads a block), C (points a
+    chunk), TILE (points a staged tile), MIN_BLOCKS (blocks an SM)."""
+    import re
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "humor_torch", "csrc", "nn_distance.cu")
+    with open(src) as f:
+        return {k: int(v) for k, v in
+                re.findall(r"constexpr int (\w+) = (\d+);", f.read())}
+
+
+def nn_edge_sizes():
+    """(clouds, N, M) at the edges of the kernel's design: M = 1, C - 1,
+    C, C + 1, one tile - 1, + 0, + 1, two tiles - 1, + 0, + 1 (the PROX
+    mesh's 6890 sits among them at the current sizes) and an M whose
+    fourth tile ends inside a chunk; N is no multiple of a block's
+    queries."""
+    d = nn_design()
+    c, tile = d["C"], d["TILE"]
+    n = 2 * d["BLOCK"] * d["Q"] - 24
+    return ((1, n, 1), (2, n, c - 1), (2, n, c), (2, n, c + 1),
+            (1, n, tile - 1), (1, n, tile), (1, n, tile + 1),
+            (1, n, 2 * tile - 1), (1, n, 2 * tile), (1, n, 2 * tile + 1),
+            (2, n, 4 * tile - c - 11))
+
+
 def check_nn():
-    """The three comparisons of phase 2, then the times at the fit's
-    full shape. Returns (max abs err at the fit's slice, kernel ms, plain
-    ms, the full shape)."""
+    """The comparisons of phase 2, then the times at the fit's full shape
+    and at stage 3's 240-cloud shape. Returns (max abs err at the fit's
+    slice, the [timing nn] record)."""
     import torch
 
     from humor_torch.ops import chamfer as CH
@@ -274,6 +310,9 @@ def check_nn():
     clouds = B * T
     x, y, n_vis = nn_inputs(clouds, N_POINTS, V_VERTS, seed=0)
     res = compare_nn("fit slice", x, y, n_vis)
+    # the reverse direction: mesh vertices as queries into the cloud
+    compare_nn("reverse", y, x, V_VERTS)
+    del x, y
     # duplicated points: the last 890 points repeat the first 890, and
     # every 8th query sits 1 mm from one of those
     x2, y2, n2 = nn_inputs(8, 1024, V_VERTS, seed=1, hidden=0.0)
@@ -283,13 +322,42 @@ def check_nn():
     compare_nn("duplicates", x2, y2, n2, first_index=q)
     x3, y3, n3 = nn_inputs(7, 1031, 2053, seed=2)
     compare_nn("prime sizes", x3, y3, n3)
-    shape = (K_CAND * clouds, N_POINTS, V_VERTS)
-    xf, yf, _ = nn_inputs(shape[0], N_POINTS, V_VERTS, seed=3)
-    ms = cuda_ms(lambda: CH.nn_forward(xf, yf), 10)
-    plain_ms = cuda_ms(lambda: CH.nn_distance_plain(xf, yf), 2)
-    print("[timing nn] " + json.dumps({"shape": shape, "ms": ms,
-                                       "plain_ms": plain_ms}))
-    return res["max_abs_err"], ms, plain_ms, shape
+    for k, (c, n, m) in enumerate(nn_edge_sizes()):
+        # point 0 repeated in its own chunk and as the last point; the
+        # first 8 queries sit 1 mm from it
+        xe, ye, ne = nn_inputs(c, n, m, seed=10 + k)
+        dup = sorted({j for j in (1, m - 1) if 0 < j < m})
+        if dup:
+            ye[:, dup] = ye[:, :1].clone()
+        xe[:, :8] = ye[:, :1] + 1e-3 * torch.arange(
+            1, 9, device=xe.device, dtype=xe.dtype)[:, None]
+        compare_nn(f"edge {c}x{n}x{m}", xe, ye, ne,
+                   first_index=torch.arange(8, device=xe.device))
+    rec = {}
+    for key, c in (("", K_CAND * clouds), ("_240", K_CAND * 2 * 15)):
+        shape = (c, N_POINTS, V_VERTS)
+        xf, yf, _ = nn_inputs(*shape, seed=3)
+        rec["shape" + key] = shape
+        rec["ms" + key] = cuda_ms(lambda: CH.nn_forward(xf, yf), 10)
+        if not key:
+            rec["plain_ms"] = cuda_ms(lambda: CH.nn_distance_plain(xf, yf), 2)
+        rec["bound_ms" + key] = nn_bound(shape)[0]
+        del xf, yf
+    print("[timing nn] " + json.dumps(rec))
+    return res["max_abs_err"], rec
+
+
+def nn_bound(shape):
+    """6 FLOP a pair (3 products, 3 sums: the JAX cost model's count);
+    inputs read once, dist and idx written once."""
+    nc, nq, nm = shape
+    return bound(6.0 * nc * nq * nm, 4.0 * 3 * nc * (nq + nm) + 8.0 * nc * nq)
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def make_models():
@@ -561,16 +629,21 @@ def run_prox_fit(models):
     for k, n in launches.items():
         if n <= 0:
             fail(f"the PROX fit never launched {k}")
+    if launches["nn_distance"] != PROX_NN_LAUNCHES:
+        fail(f"the PROX fit launched nn_distance {launches['nn_distance']} "
+             f"times, want one per evaluation ({PROX_NN_LAUNCHES})")
+    c2m = [cloud_to_mesh_m(models, obs, res.per_stage[k])
+           for k in ("stage1", "stage2")]
     print("[prox fit] " + json.dumps({
         "seconds": wall, "stage_seconds": timings,
         "final_losses": {k: float(v[-1]) for k, v in losses.items()},
         "first_losses": {k: float(v[0]) for k, v in losses.items()},
-        "stage1_cloud_to_mesh_m": cloud_to_mesh_m(
-            models, obs, res.per_stage["stage1"]),
-        "stage2_cloud_to_mesh_m": cloud_to_mesh_m(
-            models, obs, res.per_stage["stage2"]),
+        "stage1_cloud_to_mesh_m": c2m[0], "stage2_cloud_to_mesh_m": c2m[1],
         "floor_plane": res.final["floor_plane"].cpu().tolist(),
         "launches": launches}))
+    if not (c2m[0] <= C2M_LIMITS[0] and c2m[1] <= C2M_LIMITS[1]):
+        fail(f"the PROX fit ends {c2m} m from the cloud after stages 1-2 "
+             f"(limits {C2M_LIMITS})")
     profiled = O.make_runner(prox_config(PROFILE_ITERS), models,
                              device="cuda")
     profile_fit(profiled, obs)
@@ -695,7 +768,7 @@ def main():
     full = check_kernels(RK.RolloutWeights(damped(params, 0.1), dev),
                          M_STAGE3, T_ROLL, tol_world=5e-3, tol_bwd=1e-3,
                          timed=True)
-    nn_err, nn_ms, nn_plain_ms, nn_shape = check_nn()
+    nn_err, nn_rec = check_nn()
 
     # 3.-5. the fits, each counted from zero
     models = make_models()
@@ -711,18 +784,9 @@ def main():
     io_fwd = 4.0 * M_STAGE3 * (RK.CW + T_ROLL * (48 + RK.OUT_W + RK.CW))
     io_bwd = 4.0 * M_STAGE3 * (T_ROLL * (RK.CW + 48 + RK.OUT_W + 48) + RK.CW)
 
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
-        return (1e3 * max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes")
-
     b_fwd, by_fwd = bound(fl, weight_bytes + io_fwd)
     b_bwd, by_bwd = bound(2 * fl, 2 * weight_bytes + io_bwd)
-    # nearest neighbour: 6 FLOP a pair (3 products, 3 sums: the JAX cost
-    # model's count); inputs read once, dist and idx written once
-    nc, nq, nm = nn_shape
-    b_nn, by_nn = bound(6.0 * nc * nq * nm,
-                        4.0 * 3 * nc * (nq + nm) + 8.0 * nc * nq)
+    b_nn, by_nn = nn_bound(nn_rec["shape"])
     kernels = [
         {"name": "rollout_fwd", "route": "cuda",
          "source": "humor_torch/csrc/rollout_fwd.cu",
@@ -742,7 +806,7 @@ def main():
          "source": "humor_torch/csrc/nn_distance.cu",
          "replaces": "humor_tpu/ops/chamfer.py:90",
          "launches": launches["nn_distance"], "max_abs_err": nn_err,
-         "ms": nn_ms, "plain_ms": nn_plain_ms, "bound_ms": b_nn,
+         "ms": nn_rec["ms"], "plain_ms": nn_rec["plain_ms"], "bound_ms": b_nn,
          "bound_by": by_nn, "library_ms": None},
     ]
     for k in kernels:

@@ -5,7 +5,9 @@ sizes off every tile multiple, with 1e6-padded queries and duplicated
 points; the custom gradient against `jax.grad` through JAX's custom VJP.
 The CUDA kernel against the plain version is in
 test_torch_cuda_kernels.py, which imports no JAX and so also runs on a
-machine with a GPU and no JAX.
+machine with a GPU and no JAX; here the kernel's order of operations,
+reproduced in float32 torch, is held against the plain version under the
+rule chip_smoke.py applies on the card.
 
 Tolerances: distances rtol 1e-4, atol 1e-5 (the JAX tests' own; the two
 sum the 3-term cross product in different orders); indices exact on
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from humor_tpu.ops import chamfer as JC
 
 from humor_torch.ops import chamfer as TC
@@ -134,3 +137,93 @@ def test_wrapper_checks_inputs(bad):
         x = x.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):
         TC.nn_forward(x, y)
+
+
+# The CUDA kernel's arithmetic (csrc/nn_distance.cu), reproduced in float32
+# torch on the CPU, against the plain version under chip_smoke.py's rule.
+_KERNEL_CHUNK = chip_smoke.nn_design()["C"]
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add: the product is exact in float64 and the
+    sum is rounded once to float32 (it equals the FMA unless float64 had to
+    round the sum too, which these magnitudes do not reach)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_order(x, y):
+    """nn_distance.cu's order of operations: points staged as
+    (-2y, |y|^2 = fma(y0, y0, fma(y1, y1, y2*y2))), d' = fma(x0, a,
+    fma(x1, b, fma(x2, c, w))), the min of each 32-point chunk, the first
+    chunk strictly below the running best, the first point of that chunk
+    whose d' equals the best, then |x|^2 + best clamped at 0. Returns
+    (dist, idx, d') with d' (B, N, M)."""
+    B, N, _ = x.shape
+    M = y.shape[1]
+    a = (-2.0 * y)[:, None]
+    w = _fma(y[..., 0], y[..., 0], _fma(y[..., 1], y[..., 1],
+                                        y[..., 2] * y[..., 2]))[:, None]
+    xs = [x[..., k, None] for k in range(3)]
+    dp = _fma(xs[0], a[..., 0], _fma(xs[1], a[..., 1],
+                                     _fma(xs[2], a[..., 2], w)))
+    pad = -M % _KERNEL_CHUNK
+    chunks = torch.cat([dp, torch.full((B, N, pad), float("inf"))], -1
+                       ).reshape(B, N, -1, _KERNEL_CHUNK)
+    cm = chunks.amin(-1)
+    best = torch.full((B, N), float("inf"))
+    best_chunk = torch.zeros(B, N, dtype=torch.long)
+    for k in range(cm.shape[-1]):
+        take = cm[..., k] < best
+        best = torch.where(take, cm[..., k], best)
+        best_chunk = torch.where(take, k, best_chunk)
+    rescan = torch.gather(chunks, 2, best_chunk[..., None, None].expand(
+        -1, -1, 1, _KERNEL_CHUNK))[:, :, 0]
+    first = (rescan == best[..., None]).int().argmax(-1)
+    idx = best_chunk * _KERNEL_CHUNK + first
+    sqx = _fma(xs[0][..., 0], xs[0][..., 0],
+               _fma(xs[1][..., 0], xs[1][..., 0],
+                    xs[2][..., 0] * xs[2][..., 0]))
+    return torch.clamp(sqx + best, min=0.0), idx, dp
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 700), (1, 129, 33),
+                                   (3, 100, 1000)])
+def test_kernel_arithmetic_matches_plain(shape):
+    """Fit-like clouds: a body-sized cloud ~2.5 m from the camera, queries
+    its points with 1 cm noise, 10% of them at 1e6, points duplicated in
+    one chunk and across chunks with queries 1 mm from them. Distances
+    within 1e-5 on visible queries, index mismatches only at float64
+    near-ties within 1e-5, the first index on the duplicates, and the
+    chunked argmin equal to the first argmin of d' everywhere."""
+    b, n, m = shape
+    rng = np.random.RandomState(11 + m)
+    y = rng.randn(b, m, 3) * [0.25, 0.5, 0.15] + [0.0, 0.3, 2.5]
+    x = np.take_along_axis(y, rng.randint(0, m, (b, n, 1)), 1) \
+        + rng.randn(b, n, 3) * 0.01
+    dup = [(j, k) for j, k in ((3, 4), (5, m - 1), (9, m // 2)) if k > j]
+    for q, (j, k) in enumerate(dup):
+        y[:, k] = y[:, j]
+        x[:, q] = y[:, j] + 1e-3
+    n_vis = n - n // 10
+    x[:, n_vis:] = 1e6
+    xt = torch.tensor(x, dtype=torch.float32)
+    yt = torch.tensor(y, dtype=torch.float32)
+    d_k, i_k, dp = _kernel_order(xt, yt)
+    d_p, i_p = TC.nn_distance_plain(xt, yt)
+    np.testing.assert_array_equal(i_k.numpy(), dp.argmin(-1).numpy())
+    np.testing.assert_allclose(d_k[:, :n_vis].numpy(), d_p[:, :n_vis].numpy(),
+                               rtol=0, atol=1e-5)
+    q64, y64 = xt[:, :n_vis].double(), yt.double()
+
+    def d64(i):
+        nn = torch.gather(y64, 1, i[:, :n_vis, None].long().expand(-1, -1, 3))
+        return ((q64 - nn) ** 2).sum(-1)
+
+    differ = i_k[:, :n_vis] != i_p[:, :n_vis].long()
+    gap = (d64(i_k) - d64(i_p)).abs()[differ]
+    assert gap.numel() == 0 or float(gap.max()) <= 1e-5
+    for q, (j, _) in enumerate(dup):
+        assert np.all(i_k[:, q].numpy() == j)
+        assert np.all(i_p[:, q].numpy() == j)
+    assert bool(torch.isfinite(d_k).all())
+    assert bool(((i_k >= 0) & (i_k < m)).all())

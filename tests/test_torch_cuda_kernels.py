@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions: the fused
 rollout (humor_torch/ops/rollout_kernel.py) at full width, M=3 rows, T=6
 steps, and the nearest neighbour (humor_torch/ops/chamfer.py) at sizes
-off its block and tile multiples.
+off and on the edges of its chunks, tiles and blocks.
 The kernels have no CPU mode, so these tests skip without a GPU; this
 file imports no JAX, so it also runs on a machine that has none (skip
 tests/conftest.py there, which sets up JAX):
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from humor_torch.models import humor as H
 from humor_torch.ops import chamfer as CH
 from humor_torch.ops import rollout_kernel as RK
@@ -95,33 +96,46 @@ def test_kernel_wrapper_checks_inputs():
         RK._check_inputs(w, {"x": torch.zeros(2, dtype=torch.float64)})
 
 
+# (clouds, queries, points): prime sizes, then the edges of the kernel's
+# chunks, tiles and blocks that chip_smoke.py also checks
+NN_SIZES = [(5, 1031, 2053), *chip_smoke.nn_edge_sizes()]
+
+
 @pytest.mark.cuda
-def test_nn_kernel_matches_plain():
-    """Nearest neighbour, 5 clouds x 1031 queries x 2053 points, the last
-    31 queries at 1e6, a duplicated point. Distances within 1e-5 abs on
-    visible queries; an index may differ only where the two chosen
-    points' distances lie within 1e-5 (a near-tie in float32)."""
+@pytest.mark.parametrize("size", NN_SIZES, ids=lambda s: "x".join(map(str, s)))
+def test_nn_kernel_matches_plain(size):
+    """Nearest neighbour against the plain version, the last 31 queries at
+    1e6, point 7 duplicated (at 1500, or the last point) with query 0
+    1 mm from it. Distances within 1e-5 abs on visible queries; an index
+    may differ only where the two chosen points' distances lie within 1e-5
+    (a near-tie in float32); query 0 takes the first of the duplicates."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, n, m = size
     rng = np.random.RandomState(10)
-    x = rng.randn(5, 1031, 3).astype(np.float32)
-    y = rng.randn(5, 2053, 3).astype(np.float32)
-    x[:, 1000:] = 1e6
-    y[:, 1500] = y[:, 7]
+    x = rng.randn(b, n, 3).astype(np.float32)
+    y = rng.randn(b, m, 3).astype(np.float32)
+    n_vis = n - 31
+    x[:, n_vis:] = 1e6
+    if m > 8:
+        y[:, min(1500, m - 1)] = y[:, 7]
+        x[:, 0] = y[:, 7] + 1e-3
     xc, yc = torch.tensor(x).cuda(), torch.tensor(y).cuda()
     n0 = CH.launches["nn_distance"]
     d_k, i_k = CH.nn_forward(xc, yc)
     assert CH.launches["nn_distance"] == n0 + 1
     d_p, i_p = CH.nn_distance_plain(xc, yc)
     d_k, i_k, d_p, i_p = (t.cpu().numpy() for t in (d_k, i_k, d_p, i_p))
-    np.testing.assert_allclose(d_k[:, :1000], d_p[:, :1000], atol=1e-5,
+    np.testing.assert_allclose(d_k[:, :n_vis], d_p[:, :n_vis], atol=1e-5,
                                rtol=0)
-    q = x[:, :1000].astype(np.float64)
+    q = x[:, :n_vis].astype(np.float64)
     pick = lambda i: np.take_along_axis(y, i[..., None].astype(np.int64), 1)
-    gap = np.abs(((q - pick(i_k[:, :1000])) ** 2).sum(-1)
-                 - ((q - pick(i_p[:, :1000])) ** 2).sum(-1))
+    gap = np.abs(((q - pick(i_k[:, :n_vis])) ** 2).sum(-1)
+                 - ((q - pick(i_p[:, :n_vis])) ** 2).sum(-1))
     assert np.all(gap <= 1e-5)
-    assert np.all((i_k >= 0) & (i_k < 2053))
+    assert np.all((i_k >= 0) & (i_k < m)) and np.all(np.isfinite(d_k))
+    if m > 8:
+        assert np.all(i_k[:, 0] == 7)
 
 
 def test_nn_wrapper_checks_inputs():
