@@ -16,7 +16,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      check scales the decoder's output layer by 0.1, which makes the
      chain well-conditioned (plain float32 vs float64: 3e-4 m, backward
      1e-5 max-scaled, measured on the CPU); the step-by-step check uses
-     the unscaled weights. The nearest-neighbour kernel at one
+     the unscaled weights. The backward kernel also at every M in
+     BWD_EDGE_M x T in BWD_EDGE_T (1e-4), twice on the same T=59 inputs
+     (bit-identical), and timed at M=128 with its grid and barriers a
+     step. The nearest-neighbour kernel at one
      line-search candidate's slice of the PROX fit (120 clouds x 4096
      queries x 6890 points, 10% of the queries at 1e6 as the energy puts
      missing points), in the reverse direction (6890 mesh queries into
@@ -39,8 +42,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      evaluation, and that the mean distance from the visible points to
      the stage-1 and stage-2 meshes is within C2M_LIMITS;
   5. run the PROX fit at reduced iterations once plainly and once under
-     torch.profiler, and print the device-busy share of the wall time
-     and the kernels with the most device time.
+     torch.profiler, print the device-busy share of the wall time and
+     the kernels with the most device time, and check that each backward
+     call enqueued exactly one device kernel (the trace's rollout_bwd
+     kernels against the launch counter).
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then the result line {"ok": true, "device": {...}} last. Imports nothing
@@ -67,6 +72,10 @@ M_STAGE3 = K_CAND * B
 T_ROLL = T - 1
 V_VERTS = 6890
 N_POINTS = 4096                # PROX's cloud size
+BWD_EDGE_M = (1, 3, 17, 64, 128)   # backward: rows off and on its tiles
+BWD_EDGE_T = (1, 2, 6)
+BWD_M_MAX = 128        # bench_tto.py --batch 16's candidate batch
+RELU_TIE = 1e-5        # a ReLU input this close to zero is a float32 tie
 NN_TOL = 1e-5          # kernel vs plain: distance abs, and tie width
 F32_PEAK = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12     # H100 SXM device-memory bytes/s
@@ -92,7 +101,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def rollout_inputs(M, steps, seed):
+def rollout_inputs(M, steps, seed, device="cuda"):
     """A seeded canonical start carry, latents and output cotangents."""
     import numpy as np
     import torch
@@ -113,8 +122,7 @@ def rollout_inputs(M, steps, seed):
     z = f(0.5 * rng.randn(steps, M, 48))
     t2j = f(0.05 * rng.randn(M, 3) * [1, 1, 0])
     dout = f(rng.randn(steps, M, RK.OUT_W) * 0.1)
-    dev = torch.device("cuda")
-    return [t.to(dev).contiguous() for t in (x, z, t2j, dout)]
+    return [t.to(device).contiguous() for t in (x, z, t2j, dout)]
 
 
 def rollout_flops(M, steps):
@@ -178,22 +186,18 @@ def check_kernels(weights, M, steps, tol_world, tol_bwd, timed):
         fail(f"forward kernel disagrees at T={steps} M={M}: world "
              f"{err_world:.3e} (tol {tol_world}), prior mean {err_pm:.3e} "
              f"(tol 1e-3), prior var rel {err_pv:.3e} (tol 1e-3)")
-    g_k = RK.rollout_backward(weights, saved_p, z, t2j, dout)
-    g_p = RK.rollout_backward_plain(weights, saved_p, z, t2j, dout)
-    torch.cuda.synchronize()
-    bwd_scaled, bwd_err = 0.0, 0.0
-    for name, a, b in zip(("dcarry0", "dz", "dt2j"), g_k, g_p):
-        if not bool(torch.isfinite(a).all()):
-            fail(f"backward kernel: non-finite {name}")
-        diff = (a - b).abs().max().item()
-        bwd_err = max(bwd_err, diff)
-        bwd_scaled = max(bwd_scaled, diff / (b.abs().max().item() + 1e-6))
-    if bwd_scaled > tol_bwd:
-        fail(f"backward kernel disagrees at T={steps} M={M}: max-scaled "
-             f"{bwd_scaled:.3e} (tol {tol_bwd})")
+    bwd_err, bwd_scaled = check_bwd(weights, saved_p, z, t2j, dout, tol_bwd)
     res = {"fwd_err": fwd_err, "err_world": err_world, "err_pm": err_pm,
            "err_pv_rel": err_pv, "bwd_err": bwd_err,
            "bwd_scaled": bwd_scaled}
+    if timed:
+        # two runs on the same inputs: fixed summation order, no atomics
+        g1 = RK.rollout_backward(weights, saved_p, z, t2j, dout)
+        g2 = RK.rollout_backward(weights, saved_p, z, t2j, dout)
+        res["bwd_bit_identical"] = all(bool(torch.equal(a, b))
+                                       for a, b in zip(g1, g2))
+        if not res["bwd_bit_identical"]:
+            fail(f"backward kernel: two runs differ at T={steps} M={M}")
     print(f"[compare T={steps} M={M}] " + json.dumps(res))
     if timed:
         res["fwd_ms"] = cuda_ms(
@@ -209,6 +213,111 @@ def check_kernels(weights, M, steps, tol_world, tol_bwd, timed):
             {k: res[k] for k in ("fwd_ms", "fwd_plain_ms", "bwd_ms",
                                  "bwd_plain_ms")}))
     return res
+
+
+def check_bwd(weights, saved, z, t2j, dout, tol):
+    """Backward kernel against the plain VJP on the same saved carries:
+    finite outputs, the largest error of dcarry0, dz and dt2j over that
+    output's largest magnitude at most `tol`. Returns (max abs error,
+    max-scaled error)."""
+    import torch
+
+    from humor_torch.ops import rollout_kernel as RK
+
+    g_k = RK.rollout_backward(weights, saved, z, t2j, dout)
+    g_p = RK.rollout_backward_plain(weights, saved, z, t2j, dout)
+    torch.cuda.synchronize()
+    steps, M = z.shape[:2]
+    err, scaled = 0.0, 0.0
+    for name, a, b in zip(("dcarry0", "dz", "dt2j"), g_k, g_p):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"backward kernel: non-finite {name} at T={steps} M={M}")
+        diff = (a - b).abs().max().item()
+        err = max(err, diff)
+        scaled = max(scaled, diff / (b.abs().max().item() + 1e-6))
+    if scaled > tol:
+        fail(f"backward kernel disagrees at T={steps} M={M}: max-scaled "
+             f"{scaled:.3e} (tol {tol})")
+    return err, scaled
+
+
+def row_errors(g_k, g_p):
+    """Per row, the largest error of dcarry0, dz and dt2j over that
+    output's largest magnitude (rows are independent rollouts)."""
+    import torch
+
+    errs = []
+    for a, b in zip(g_k, g_p):
+        d = (a - b).abs() / (b.abs().max() + 1e-6)
+        errs.append(d.transpose(0, 1).reshape(d.shape[1], -1).max(1).values
+                    if d.dim() == 3 else d.max(1).values)
+    return torch.stack(errs).max(0).values
+
+
+def check_bwd_edges(weights, weights64):
+    """The backward kernel at row counts off and on its 16-row tiles and
+    past 2 x 64 (M in BWD_EDGE_M) and at T in BWD_EDGE_T steps, against
+    the plain VJP: every row within 1e-4 max-scaled (the T=6 bound), but
+    for rows at a float32 ReLU tie: a ReLU input of the float64
+    recompute within RELU_TIE of zero (relative to its layer's mean
+    magnitude), where two float32 evaluations may take different branches
+    (measured: one such row at M=128, T=6 matched the float64 VJP with
+    that unit's mask flipped to 1.4e-7). Those rows are reported. Returns
+    the largest max-scaled error of the other rows."""
+    import torch
+
+    from humor_torch.ops import rollout_kernel as RK
+
+    found, ties = {}, {}
+    for M in BWD_EDGE_M:
+        for steps in BWD_EDGE_T:
+            carry0, z, t2j, dout = rollout_inputs(M, steps,
+                                                  seed=100 + M + steps)
+            _, saved = RK.rollout_forward_plain(weights, carry0, z, t2j)
+            g_k = RK.rollout_backward(weights, saved, z, t2j, dout)
+            g_p = RK.rollout_backward_plain(weights, saved, z, t2j, dout)
+            if not all(bool(torch.isfinite(a).all()) for a in g_k):
+                fail(f"backward kernel: non-finite output at T={steps} M={M}")
+            err = row_errors(g_k, g_p)
+            off = (err > 1e-4).nonzero().flatten()
+            key = f"M={M},T={steps}"
+            if len(off):
+                margin = RK.relu_margins(weights64, saved.double(),
+                                         z.double())[off]
+                ties[key] = {int(r): [float(e), float(m)] for r, e, m in
+                             zip(off, err[off], margin)}
+                if bool((margin >= RELU_TIE).any()):
+                    fail(f"backward kernel disagrees at T={steps} M={M} in "
+                         f"rows that are no ReLU tie: {ties[key]}")
+                err[off] = 0.0
+            found[key] = float(err.max())
+    print("[bwd edges] " + json.dumps({"max_scaled": found,
+                                       "tie_rows_err_margin": ties}))
+    return max(found.values())
+
+
+def time_bwd(weights, M, steps):
+    """The backward kernel's time at (M, steps), saved carries from the
+    forward kernel."""
+    from humor_torch.ops import rollout_kernel as RK
+
+    carry0, z, t2j, dout = rollout_inputs(M, steps, seed=M)
+    _, saved = RK.rollout_forward(weights, carry0, z, t2j)
+    return cuda_ms(lambda: RK.rollout_backward(weights, saved, z, t2j, dout),
+                   5)
+
+
+def bwd_bound(weights, M, steps):
+    """Twice the forward's FLOP (recompute + transposed products); the
+    weights read twice, saved, z, dout read and the cotangents written
+    once."""
+    from humor_torch.ops import rollout_kernel as RK
+
+    weight_bytes = 4.0 * sum(t.numel() for part in (weights.prior,
+                                                    weights.decoder)
+                             for t in part[0] + part[1])
+    io = 4.0 * M * (steps * (RK.CW + 48 + RK.OUT_W + 48) + RK.CW)
+    return bound(2 * rollout_flops(M, steps), 2 * weight_bytes + io)
 
 
 def nn_inputs(clouds, n, m, seed, hidden=0.1):
@@ -663,17 +772,21 @@ def profile_fit(runner, obs):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from humor_torch.ops import rollout_kernel as RK
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runner(obs)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
+    calls = RK.launches["rollout_bwd"]
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         runner(obs)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    calls = RK.launches["rollout_bwd"] - calls
     per_name = collections.defaultdict(lambda: [0, 0.0])
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -681,7 +794,10 @@ def profile_fit(runner, obs):
             per_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:15]
+    bwd_kernels = sum(n for k, (n, _) in per_name.items()
+                      if "rollout_bwd_kernel" in k)
     print("[profile] " + json.dumps({
+        "rollout_bwd_calls": calls, "rollout_bwd_device_kernels": bwd_kernels,
         "wall_s": wall, "unprofiled_wall_s": plain_wall,
         "device_busy_s": busy_ms / 1e3,
         "device_busy_share": busy_ms / 1e3 / wall,
@@ -689,6 +805,9 @@ def profile_fit(runner, obs):
         "kernel_launches": sum(n for n, _ in per_name.values()),
         "top": [{"name": k[:80], "count": n, "device_ms": ms}
                 for k, (n, ms) in top]}))
+    if calls <= 0 or bwd_kernels != calls:
+        fail(f"{calls} backward calls enqueued {bwd_kernels} rollout_bwd "
+             "device kernels, want exactly one a call")
 
 
 def run_fit(models):
@@ -765,9 +884,16 @@ def main():
     check_kernels(weights, M_STAGE3, 6, tol_world=1e-4, tol_bwd=1e-4,
                   timed=False)
     check_steps(weights, M_STAGE3, T_ROLL, tol_world=5e-3)
-    full = check_kernels(RK.RolloutWeights(damped(params, 0.1), dev),
-                         M_STAGE3, T_ROLL, tol_world=5e-3, tol_bwd=1e-3,
-                         timed=True)
+    damped_weights = RK.RolloutWeights(damped(params, 0.1), dev)
+    full = check_kernels(damped_weights, M_STAGE3, T_ROLL, tol_world=5e-3,
+                         tol_bwd=1e-3, timed=True)
+    bwd_edge_err = check_bwd_edges(
+        weights, RK.RolloutWeights(params, dev, dtype=torch.float64))
+    bwd_design = RK.backward_design()
+    bwd_ms_128 = time_bwd(damped_weights, BWD_M_MAX, T_ROLL)
+    print("[timing bwd] " + json.dumps({**bwd_design, "M": BWD_M_MAX,
+                                        "T": T_ROLL, "ms": bwd_ms_128}))
+    del damped_weights
     nn_err, nn_rec = check_nn()
 
     # 3.-5. the fits, each counted from zero
@@ -782,10 +908,9 @@ def main():
                                                     weights.decoder)
                              for t in part[0] + part[1])
     io_fwd = 4.0 * M_STAGE3 * (RK.CW + T_ROLL * (48 + RK.OUT_W + RK.CW))
-    io_bwd = 4.0 * M_STAGE3 * (T_ROLL * (RK.CW + 48 + RK.OUT_W + 48) + RK.CW)
 
     b_fwd, by_fwd = bound(fl, weight_bytes + io_fwd)
-    b_bwd, by_bwd = bound(2 * fl, 2 * weight_bytes + io_bwd)
+    b_bwd, by_bwd = bwd_bound(weights, M_STAGE3, T_ROLL)
     b_nn, by_nn = nn_bound(nn_rec["shape"])
     kernels = [
         {"name": "rollout_fwd", "route": "cuda",
@@ -801,7 +926,13 @@ def main():
          "launches": launches["rollout_bwd"],
          "max_abs_err": full["bwd_err"], "ms": full["bwd_ms"],
          "plain_ms": full["bwd_plain_ms"], "bound_ms": b_bwd,
-         "bound_by": by_bwd, "library_ms": None},
+         "bound_by": by_bwd, "library_ms": None,
+         "barriers_per_step": bwd_design["barriers_per_step"],
+         "grid_blocks": bwd_design["grid_blocks"],
+         "ms_m128": bwd_ms_128,
+         "bound_ms_m128": bwd_bound(weights, BWD_M_MAX, T_ROLL)[0],
+         "bit_identical": full["bwd_bit_identical"],
+         "edge_max_scaled": bwd_edge_err},
         {"name": "nn_distance", "route": "cuda",
          "source": "humor_torch/csrc/nn_distance.cu",
          "replaces": "humor_tpu/ops/chamfer.py:90",

@@ -1,9 +1,9 @@
 // Shared pieces of the fused HuMoR rollout kernels (rollout_fwd.cu,
-// rollout_bwd.cu): the layout constants, the weights struct, the split-K
-// product with its epilogues (bias, GroupNorm(16)+ReLU), the per-step MLP
-// forward, and the 3x3 rotation helpers. The math mirrors the plain
-// PyTorch version in humor_torch/ops/rollout_kernel.py; see its module
-// docstring for the layout and the design.
+// rollout_bwd.cu): the layout constants, the weights struct and the 3x3
+// rotation and tail helpers; the forward's split-K product with its
+// epilogues (bias, GroupNorm(16)+ReLU) and per-step MLP forward. The math
+// mirrors the plain PyTorch version in humor_torch/ops/rollout_kernel.py;
+// see its module docstring for the layout and the design.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,19 +32,17 @@ constexpr int MAX_S = (MAX_N + MM_KS - 1) / MM_KS;
 }  // namespace humor
 
 extern "C" {
-// Per layer: w (in, out) row-major, bias, the GroupNorm affine applied to
-// the layer's INPUT (null for layer 0), and w^T (out, in).
+// Per layer: w (in, out) row-major, bias, and the GroupNorm affine applied
+// to the layer's INPUT (null for layer 0).
 struct RolloutWeights {
   const float* pw[5];
   const float* pb[5];
   const float* pgs[5];
   const float* pgb[5];
-  const float* pwt[5];
   const float* dw[4];
   const float* db[4];
   const float* dgs[4];
   const float* dgb[4];
-  const float* dwt[4];
 };
 
 const char* humor_cuda_error_string(int code) {
@@ -61,7 +59,7 @@ namespace humor {
   } while (0)
 
 // ---------------------------------------------------------------------------
-// Scratch layout (floats), shared by both libraries
+// Scratch layout (floats) of the forward
 // ---------------------------------------------------------------------------
 
 struct Scratch {
@@ -72,18 +70,13 @@ struct Scratch {
   float* hd[3];     // decoder pre-GroupNorm (M x 1024, last uses 512)
   float* ad[3];
   float* draw;      // M x 216
-  float* last;      // M x CW: carry after the last step (forward)
-  float* dcar[2];   // M x CW carry cotangents (backward ping-pong)
-  float* dh[2];     // M x 1024
-  float* ddraw;     // M x 216
-  float* dp;        // M x 96
+  float* last;      // M x CW: carry after the last step
 };
 
 inline long long scratch_floats(int M) {
   long long m = M;
   return (long long)MAX_S * m * MAX_N + 8 * m * HID + m * PHEAD +
-         6 * m * HID + m * RAW + m * CW + 2 * m * CW + 2 * m * HID +
-         m * RAW + m * PHEAD;
+         6 * m * HID + m * RAW + m * CW;
 }
 
 inline Scratch carve(float* base, int M) {
@@ -97,11 +90,7 @@ inline Scratch carve(float* base, int M) {
   for (int i = 0; i < 3; ++i) { s.hd[i] = p; p += m * HID; }
   for (int i = 0; i < 3; ++i) { s.ad[i] = p; p += m * HID; }
   s.draw = p; p += m * RAW;
-  s.last = p; p += m * CW;
-  for (int i = 0; i < 2; ++i) { s.dcar[i] = p; p += m * CW; }
-  for (int i = 0; i < 2; ++i) { s.dh[i] = p; p += m * HID; }
-  s.ddraw = p; p += m * RAW;
-  s.dp = p; p += m * PHEAD;
+  s.last = p;
   return s;
 }
 

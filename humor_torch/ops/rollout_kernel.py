@@ -23,10 +23,15 @@ f32 matmul (0.19 GFLOP at M=16, ~11 GFLOP per 59-step rollout) against
 The backward recomputes each step's activations from the saved entry
 carry and then runs the transposed products, about twice the forward's
 work. At M=16 the real limit is parallelism: a 16-row product gives few
-blocks, so the kernels split K over blocks (128-deep slices) and reduce
-in a second, fused epilogue kernel (bias, GroupNorm, ReLU). The C entry
-loops over the steps on the stream; the weights stay in L2 after the
-first step. Math is plain f32 FMA: no TF32, no bf16.
+blocks, so the kernels split K over blocks. The forward's C entry loops
+over the steps on the stream, a split-K product (128-deep slices) and a
+fused epilogue kernel (bias, GroupNorm, ReLU) a layer; its weights stay
+in L2 after the first step. The backward is one persistent cooperative
+launch a rollout that holds the weights in its blocks' shared memory as
+64 x 64 tiles serving both directions, runs the recompute of step t
+beside the backward of step t + 1 (6 grid-wide barriers a step) and
+finishes each split-K output tile in one block dealt it (see
+csrc/rollout_bwd.cu). Math is plain f32 FMA: no TF32, no bf16.
 
 Layout (shared by the kernels and the plain versions):
   carry (M, 351) = x (339: trans 3 | trans_vel 3 | root 9 | root_vel 3 |
@@ -70,32 +75,31 @@ launches = {"rollout_fwd": 0, "rollout_bwd": 0}
 
 class _WeightsStruct(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p * n) for name, n in (
-        ("pw", 5), ("pb", 5), ("pgs", 5), ("pgb", 5), ("pwt", 5),
-        ("dw", 4), ("db", 4), ("dgs", 4), ("dgb", 4), ("dwt", 4))]
+        ("pw", 5), ("pb", 5), ("pgs", 5), ("pgb", 5),
+        ("dw", 4), ("db", 4), ("dgs", 4), ("dgb", 4))]
 
 
 class RolloutWeights:
     """Frozen prior + decoder weights in the kernels' layout: per layer
-    w (in, out), b, the GroupNorm affine applied to that layer's INPUT
-    (None for layer 0), and w^T (out, in) for the backward's products,
-    made once here. The kernels take float32 only; float64 weights serve
-    the plain versions in precision studies."""
+    w (in, out), b, and the GroupNorm affine applied to that layer's INPUT
+    (None for layer 0). The backward's transposed products read rows of
+    w, so no transposed copy is kept. The kernels take float32 only;
+    float64 weights serve the plain versions in precision studies."""
 
     def __init__(self, params: Dict, device, dtype=torch.float32):
         def cast(t):
             return t.to(device=device, dtype=dtype).contiguous()
 
         def prep(layers):
-            ws, bs, gss, gbs, wts = [], [], [], [], []
+            ws, bs, gss, gbs = [], [], [], []
             for layer in layers:
                 ws.append(cast(layer["w"]))
-                wts.append(ws[-1].t().contiguous())
                 bs.append(cast(layer["b"]))
                 gss.append(cast(layer["gn_scale"]) if "gn_scale" in layer
                            else None)
                 gbs.append(cast(layer["gn_bias"]) if "gn_bias" in layer
                            else None)
-            return ws, bs, gss, gbs, wts
+            return ws, bs, gss, gbs
 
         self.prior = prep(params["prior"])
         self.decoder = prep(params["decoder"])
@@ -107,12 +111,15 @@ class RolloutWeights:
     def struct(self) -> _WeightsStruct:
         if self._struct is None:
             s = _WeightsStruct()
-            for prefix, (ws, bs, gss, gbs, wts) in (("p", self.prior),
-                                                    ("d", self.decoder)):
+            for prefix, (ws, bs, gss, gbs) in (("p", self.prior),
+                                               ("d", self.decoder)):
                 for i in range(len(ws)):
                     for field, t in (("w", ws[i]), ("b", bs[i]),
-                                     ("gs", gss[i]), ("gb", gbs[i]),
-                                     ("wt", wts[i])):
+                                     ("gs", gss[i]), ("gb", gbs[i])):
+                        if t is not None and t.data_ptr() % 16:
+                            raise ValueError("the kernels read weights as "
+                                             "float4: need 16-byte-aligned "
+                                             "tensors")
                         getattr(s, prefix + field)[i] = (
                             t.data_ptr() if t is not None else None)
             self._struct = s
@@ -134,7 +141,7 @@ def _gn(h, gs, gb):
 
 def _mlp(layers, inp, z=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Head output and the pre-GroupNorm activations of layers 0..n-2."""
-    ws, bs, gss, gbs, _ = layers
+    ws, bs, gss, gbs = layers
     h = (inp if z is None else torch.cat([inp, z], dim=-1)) @ ws[0] + bs[0]
     hs = []
     for i in range(1, len(ws)):
@@ -424,11 +431,11 @@ def _gn_relu_vjp(da, h, gs, gb):
 def _mlp_vjp(layers, hs, dhead, z_width=0):
     """Back through an MLP from its head cotangent: returns (d input,
     d z summed over layers or None)."""
-    ws, bs, gss, gbs, wts = layers
+    ws, bs, gss, gbs = layers
     dh = dhead
     dz = None
     for i in range(len(ws) - 1, -1, -1):
-        dinp = dh @ wts[i]
+        dinp = dh @ ws[i].t()
         if z_width:
             part = dinp[:, -z_width:]
             dz = part if dz is None else dz + part
@@ -436,6 +443,26 @@ def _mlp_vjp(layers, hs, dhead, z_width=0):
         if i == 0:
             return dinp, dz
         dh = _gn_relu_vjp(dinp, hs[i - 1], gss[i], gbs[i])
+
+
+def relu_margins(w: RolloutWeights, saved, z):
+    """Per row, the smallest |ReLU input| over its layer's mean |ReLU
+    input|, over every step and hidden layer of both MLPs, recomputed
+    from the saved entry carries (T, M, 351) in the weights' precision.
+    Where it is near float32's resolution, two float32 evaluations can
+    take the ReLU's two branches, and the row's cotangents differ by that
+    unit's whole term (a tie, not an error)."""
+    margin = torch.full((saved.shape[1],), float("inf"), dtype=saved.dtype,
+                        device=saved.device)
+    for t in range(saved.shape[0]):
+        x = saved[t][:, :D_X]
+        for layers, zt in ((w.prior, None), (w.decoder, z[t])):
+            _, hs = _mlp(layers, x, zt)
+            for i, h in enumerate(hs):
+                y = _gn(h, layers[2][i + 1], layers[3][i + 1]).abs()
+                rel = y / y.mean(dim=1, keepdim=True)
+                margin = torch.minimum(margin, rel.min(dim=1).values)
+    return margin
 
 
 def rollout_backward_plain(w: RolloutWeights, saved, z, t2j, dout):
@@ -485,9 +512,22 @@ def _lib(name):
         fn.argtypes = ([ctypes.POINTER(_WeightsStruct)] + [_P] * ptrs
                        + [ctypes.c_int, ctypes.c_int, _P])
         fn.restype = ctypes.c_int
-        lib.rollout_scratch_floats.argtypes = [ctypes.c_int]
-        lib.rollout_scratch_floats.restype = ctypes.c_longlong
+        scratch = (lib.rollout_scratch_floats if name == "rollout_fwd"
+                   else lib.rollout_bwd_scratch_floats)
+        scratch.argtypes = [ctypes.c_int]
+        scratch.restype = ctypes.c_longlong
     return lib
+
+
+def backward_design() -> Dict[str, int]:
+    """The backward kernel's launch on this device: blocks of its grid and
+    grid-wide barriers a step (loads and builds it; needs a GPU)."""
+    lib = _lib("rollout_bwd")
+    blocks = lib.rollout_bwd_grid_blocks()
+    if blocks <= 0:
+        cuda_build.check(lib, -blocks, "rollout_bwd grid query")
+    return {"grid_blocks": blocks,
+            "barriers_per_step": lib.rollout_bwd_barriers_per_step()}
 
 
 def _forward_cuda(w: RolloutWeights, carry0, z, t2j):
@@ -519,7 +559,7 @@ def _backward_cuda(w: RolloutWeights, saved, z, t2j, dout):
     dcarry0 = torch.empty(M, CW, device=w.device)
     dz = torch.empty_like(z)
     dt2j = torch.empty_like(t2j)
-    scratch = torch.empty(lib.rollout_scratch_floats(M), device=w.device)
+    scratch = torch.empty(lib.rollout_bwd_scratch_floats(M), device=w.device)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     rc = lib.rollout_bwd(ctypes.byref(w.struct()), saved.data_ptr(),
                          z.data_ptr(), t2j.data_ptr(), dout.data_ptr(),

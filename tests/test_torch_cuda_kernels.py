@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions: the fused
 rollout (humor_torch/ops/rollout_kernel.py) at full width, M=3 rows, T=6
-steps, and the nearest neighbour (humor_torch/ops/chamfer.py) at sizes
-off and on the edges of its chunks, tiles and blocks.
+steps, the backward also at the edge sizes of chip_smoke.py (rows off and
+on its tiles, 1, 2 and 6 steps), twice on the same inputs (bit-identical)
+and as one device kernel a call; and the nearest neighbour
+(humor_torch/ops/chamfer.py) at sizes off and on the edges of its chunks,
+tiles and blocks.
 The kernels have no CPU mode, so these tests skip without a GPU; this
 file imports no JAX, so it also runs on a machine that has none (skip
 tests/conftest.py there, which sets up JAX):
@@ -74,6 +77,71 @@ def test_backward_kernel_matches_plain(cuda_inputs):
                                    atol=1e-4, err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def cuda_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator().manual_seed(0)
+    return RK.RolloutWeights(H.init_params(H.HumorConfig(), g),
+                             torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(m, t) for m in chip_smoke.BWD_EDGE_M
+                                  for t in chip_smoke.BWD_EDGE_T],
+                         ids=lambda s: "M%d-T%d" % s)
+def test_backward_kernel_edge_sizes(cuda_weights, size):
+    """The backward kernel against the plain VJP at M rows and T steps:
+    every row within 1e-4 max-scaled as at M=3, but for rows at a float32
+    ReLU tie (chip_smoke.check_bwd_edges)."""
+    M, steps = size
+    carry0, z, t2j, dout = chip_smoke.rollout_inputs(M, steps,
+                                                     seed=100 + M + steps)
+    _, saved = RK.rollout_forward_plain(cuda_weights, carry0, z, t2j)
+    gk = RK.rollout_backward(cuda_weights, saved, z, t2j, dout)
+    gp = RK.rollout_backward_plain(cuda_weights, saved, z, t2j, dout)
+    assert all(bool(torch.isfinite(a).all()) for a in gk)
+    err = chip_smoke.row_errors(gk, gp)
+    off = (err > 1e-4).nonzero().flatten()
+    if len(off):
+        w64 = RK.RolloutWeights(H.init_params(
+            H.HumorConfig(), torch.Generator().manual_seed(0)),
+            torch.device("cuda"), dtype=torch.float64)
+        margin = RK.relu_margins(w64, saved.double(), z.double())[off]
+        assert bool((margin < chip_smoke.RELU_TIE).all()), (off, margin)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic(cuda_inputs):
+    """Two calls on the same inputs give bit-identical outputs: the split-K
+    partials are summed in a fixed order, with no float atomics."""
+    w, (carry0, z, t2j, dout) = cuda_inputs
+    _, saved = RK.rollout_forward_plain(w, carry0, z, t2j)
+    g1 = RK.rollout_backward(w, saved, z, t2j, dout)
+    g2 = RK.rollout_backward(w, saved, z, t2j, dout)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_one_launch(cuda_inputs):
+    """A backward call enqueues exactly one device kernel (no memset, no
+    copy): the persistent cooperative launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    w, (carry0, z, t2j, dout) = cuda_inputs
+    _, saved = RK.rollout_forward_plain(w, carry0, z, t2j)
+    RK.rollout_backward(w, saved, z, t2j, dout)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        RK.rollout_backward(w, saved, z, t2j, dout)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "rollout_bwd_kernel" in names[0], names
+
+
 @pytest.mark.cuda
 def test_autograd_function_uses_kernels(cuda_inputs):
     """RolloutFunction on CUDA tensors launches both kernels."""
@@ -94,6 +162,19 @@ def test_kernel_wrapper_checks_inputs():
     w = RK.RolloutWeights(H.init_params(H.HumorConfig(), g), "cpu")
     with pytest.raises(ValueError):
         RK._check_inputs(w, {"x": torch.zeros(2, dtype=torch.float64)})
+
+
+def test_kernel_weights_must_be_aligned():
+    """The kernels read weights as float4: a weight that starts 4 bytes
+    into its storage is refused when the kernels' struct is made."""
+    g = torch.Generator().manual_seed(0)
+    params = H.init_params(H.HumorConfig(), g)
+    b = params["prior"][0]["b"]
+    shifted = torch.cat([b.new_zeros(1), b])[1:]
+    params["prior"][0] = dict(params["prior"][0], b=shifted)
+    w = RK.RolloutWeights(params, "cpu")
+    with pytest.raises(ValueError):
+        w.struct()
 
 
 # (clouds, queries, points): prime sizes, then the edges of the kernel's
