@@ -16,10 +16,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      check scales the decoder's output layer by 0.1, which makes the
      chain well-conditioned (plain float32 vs float64: 3e-4 m, backward
      1e-5 max-scaled, measured on the CPU); the step-by-step check uses
-     the unscaled weights. The backward kernel also at every M in
-     BWD_EDGE_M x T in BWD_EDGE_T (1e-4), twice on the same T=59 inputs
-     (bit-identical), and timed at M=128 with its grid and barriers a
-     step. The nearest-neighbour kernel at one
+     the unscaled weights. Both rollout kernels also at every M in EDGE_M
+     x T in EDGE_T (1e-4), twice on the same T=59 inputs (bit-identical),
+     and timed at M=128 with their grids and barriers a step. The
+     nearest-neighbour kernel at one
      line-search candidate's slice of the PROX fit (120 clouds x 4096
      queries x 6890 points, 10% of the queries at 1e6 as the energy puts
      missing points), in the reverse direction (6890 mesh queries into
@@ -43,9 +43,10 @@ Phases, each of which fails the run (non-zero exit) on error:
      the stage-1 and stage-2 meshes is within C2M_LIMITS;
   5. run the PROX fit at reduced iterations once plainly and once under
      torch.profiler, print the device-busy share of the wall time and
-     the kernels with the most device time, and check that each backward
-     call enqueued exactly one device kernel (the trace's rollout_bwd
-     kernels against the launch counter).
+     the kernels with the most device time, and check that each forward
+     and each backward call enqueued exactly one device kernel (the
+     trace's rollout_fwd and rollout_bwd kernels against the launch
+     counters).
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then the result line {"ok": true, "device": {...}} last. Imports nothing
@@ -72,9 +73,10 @@ M_STAGE3 = K_CAND * B
 T_ROLL = T - 1
 V_VERTS = 6890
 N_POINTS = 4096                # PROX's cloud size
-BWD_EDGE_M = (1, 3, 17, 64, 128)   # backward: rows off and on its tiles
-BWD_EDGE_T = (1, 2, 6)
-BWD_M_MAX = 128        # bench_tto.py --batch 16's candidate batch
+EDGE_M = (1, 3, 17, 64, 128)   # rollout kernels: rows off and on their tiles
+EDGE_T = (1, 2, 6)
+M_MAX = 128            # bench_tto.py --batch 16's candidate batch
+PV = 396               # out[..., PV:]: the prior variance, exp of a head
 RELU_TIE = 1e-5        # a ReLU input this close to zero is a float32 tie
 NN_TOL = 1e-5          # kernel vs plain: distance abs, and tie width
 F32_PEAK = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
@@ -192,6 +194,12 @@ def check_kernels(weights, M, steps, tol_world, tol_bwd, timed):
            "bwd_scaled": bwd_scaled}
     if timed:
         # two runs on the same inputs: fixed summation order, no atomics
+        f1 = RK.rollout_forward(weights, carry0, z, t2j)
+        f2 = RK.rollout_forward(weights, carry0, z, t2j)
+        res["fwd_bit_identical"] = all(bool(torch.equal(a, b))
+                                       for a, b in zip(f1, f2))
+        if not res["fwd_bit_identical"]:
+            fail(f"forward kernel: two runs differ at T={steps} M={M}")
         g1 = RK.rollout_backward(weights, saved_p, z, t2j, dout)
         g2 = RK.rollout_backward(weights, saved_p, z, t2j, dout)
         res["bwd_bit_identical"] = all(bool(torch.equal(a, b))
@@ -256,7 +264,7 @@ def row_errors(g_k, g_p):
 
 def check_bwd_edges(weights, weights64):
     """The backward kernel at row counts off and on its 16-row tiles and
-    past 2 x 64 (M in BWD_EDGE_M) and at T in BWD_EDGE_T steps, against
+    past 2 x 64 (M in EDGE_M) and at T in EDGE_T steps, against
     the plain VJP: every row within 1e-4 max-scaled (the T=6 bound), but
     for rows at a float32 ReLU tie: a ReLU input of the float64
     recompute within RELU_TIE of zero (relative to its layer's mean
@@ -269,8 +277,8 @@ def check_bwd_edges(weights, weights64):
     from humor_torch.ops import rollout_kernel as RK
 
     found, ties = {}, {}
-    for M in BWD_EDGE_M:
-        for steps in BWD_EDGE_T:
+    for M in EDGE_M:
+        for steps in EDGE_T:
             carry0, z, t2j, dout = rollout_inputs(M, steps,
                                                   seed=100 + M + steps)
             _, saved = RK.rollout_forward_plain(weights, carry0, z, t2j)
@@ -296,6 +304,63 @@ def check_bwd_edges(weights, weights64):
     return max(found.values())
 
 
+def check_fwd_edges(weights):
+    """The forward kernel at row counts off and on its 16-row tiles and
+    past 2 x 64 (M in EDGE_M) and at T in EDGE_T steps, against the plain
+    forward: out and the saved carries within 1e-4 + 1e-4 |plain| (the
+    T=6 bound of tests/test_torch_cuda_kernels.py). Returns the largest
+    abs error of out without the prior variance (exp of a head output,
+    compared relatively) and of saved."""
+    import torch
+
+    from humor_torch.ops import rollout_kernel as RK
+
+    found = {}
+    for M in EDGE_M:
+        for steps in EDGE_T:
+            carry0, z, t2j, _ = rollout_inputs(M, steps, seed=200 + M + steps)
+            out_k, saved_k = RK.rollout_forward(weights, carry0, z, t2j)
+            out_p, saved_p = RK.rollout_forward_plain(weights, carry0, z, t2j)
+            if not (bool(torch.isfinite(out_k).all())
+                    and bool(torch.isfinite(saved_k).all())):
+                fail(f"forward kernel: non-finite output at T={steps} M={M}")
+            over = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                       for a, b in ((out_k, out_p), (saved_k, saved_p)))
+            err = max((out_k[..., :PV] - out_p[..., :PV]).abs().max().item(),
+                      (saved_k - saved_p).abs().max().item())
+            pv = ((out_k[..., PV:] - out_p[..., PV:]).abs()
+                  / out_p[..., PV:].abs()).max().item()
+            found[f"M={M},T={steps}"] = [err, pv]
+            if over > 1e-4:
+                fail(f"forward kernel disagrees at T={steps} M={M}: abs "
+                     f"{err:.3e}, prior var rel {pv:.3e} (tol 1e-4 + 1e-4 "
+                     "|plain|)")
+    print("[fwd edges] " + json.dumps({"max_abs_err_and_pv_rel": found}))
+    return max(e for e, _ in found.values())
+
+
+def time_fwd(weights, M, steps):
+    """The forward kernel's time at (M, steps)."""
+    from humor_torch.ops import rollout_kernel as RK
+
+    carry0, z, t2j, _ = rollout_inputs(M, steps, seed=M)
+    return cuda_ms(lambda: RK.rollout_forward(weights, carry0, z, t2j), 5)
+
+
+def weight_bytes(weights):
+    return 4.0 * sum(t.numel() for part in (weights.prior, weights.decoder)
+                     for t in part[0] + part[1])
+
+
+def fwd_bound(weights, M, steps):
+    """The forward's FLOP; the weights, carry0 and z read and out and the
+    saved carries written once."""
+    from humor_torch.ops import rollout_kernel as RK
+
+    io = 4.0 * M * (RK.CW + steps * (48 + RK.OUT_W + RK.CW))
+    return bound(rollout_flops(M, steps), weight_bytes(weights) + io)
+
+
 def time_bwd(weights, M, steps):
     """The backward kernel's time at (M, steps), saved carries from the
     forward kernel."""
@@ -313,11 +378,8 @@ def bwd_bound(weights, M, steps):
     once."""
     from humor_torch.ops import rollout_kernel as RK
 
-    weight_bytes = 4.0 * sum(t.numel() for part in (weights.prior,
-                                                    weights.decoder)
-                             for t in part[0] + part[1])
     io = 4.0 * M * (steps * (RK.CW + 48 + RK.OUT_W + 48) + RK.CW)
-    return bound(2 * rollout_flops(M, steps), 2 * weight_bytes + io)
+    return bound(2 * rollout_flops(M, steps), 2 * weight_bytes(weights) + io)
 
 
 def nn_inputs(clouds, n, m, seed, hidden=0.1):
@@ -779,14 +841,15 @@ def profile_fit(runner, obs):
     runner(obs)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    calls = RK.launches["rollout_bwd"]
+    names = ("rollout_fwd", "rollout_bwd")
+    calls = {k: RK.launches[k] for k in names}
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         runner(obs)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    calls = RK.launches["rollout_bwd"] - calls
+    calls = {k: RK.launches[k] - calls[k] for k in names}
     per_name = collections.defaultdict(lambda: [0, 0.0])
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -794,10 +857,11 @@ def profile_fit(runner, obs):
             per_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:15]
-    bwd_kernels = sum(n for k, (n, _) in per_name.items()
-                      if "rollout_bwd_kernel" in k)
+    kernels = {k: sum(n for name, (n, _) in per_name.items()
+                      if k + "_kernel" in name) for k in names}
     print("[profile] " + json.dumps({
-        "rollout_bwd_calls": calls, "rollout_bwd_device_kernels": bwd_kernels,
+        **{k + "_calls": calls[k] for k in names},
+        **{k + "_device_kernels": kernels[k] for k in names},
         "wall_s": wall, "unprofiled_wall_s": plain_wall,
         "device_busy_s": busy_ms / 1e3,
         "device_busy_share": busy_ms / 1e3 / wall,
@@ -805,9 +869,10 @@ def profile_fit(runner, obs):
         "kernel_launches": sum(n for n, _ in per_name.values()),
         "top": [{"name": k[:80], "count": n, "device_ms": ms}
                 for k, (n, ms) in top]}))
-    if calls <= 0 or bwd_kernels != calls:
-        fail(f"{calls} backward calls enqueued {bwd_kernels} rollout_bwd "
-             "device kernels, want exactly one a call")
+    for k in names:
+        if calls[k] <= 0 or kernels[k] != calls[k]:
+            fail(f"{calls[k]} {k} calls enqueued {kernels[k]} {k} device "
+                 "kernels, want exactly one a call")
 
 
 def run_fit(models):
@@ -887,11 +952,16 @@ def main():
     damped_weights = RK.RolloutWeights(damped(params, 0.1), dev)
     full = check_kernels(damped_weights, M_STAGE3, T_ROLL, tol_world=5e-3,
                          tol_bwd=1e-3, timed=True)
+    fwd_edge_err = check_fwd_edges(weights)
     bwd_edge_err = check_bwd_edges(
         weights, RK.RolloutWeights(params, dev, dtype=torch.float64))
+    fwd_design = RK.forward_design()
+    fwd_ms_128 = time_fwd(damped_weights, M_MAX, T_ROLL)
+    print("[timing fwd] " + json.dumps({**fwd_design, "M": M_MAX,
+                                        "T": T_ROLL, "ms": fwd_ms_128}))
     bwd_design = RK.backward_design()
-    bwd_ms_128 = time_bwd(damped_weights, BWD_M_MAX, T_ROLL)
-    print("[timing bwd] " + json.dumps({**bwd_design, "M": BWD_M_MAX,
+    bwd_ms_128 = time_bwd(damped_weights, M_MAX, T_ROLL)
+    print("[timing bwd] " + json.dumps({**bwd_design, "M": M_MAX,
                                         "T": T_ROLL, "ms": bwd_ms_128}))
     del damped_weights
     nn_err, nn_rec = check_nn()
@@ -903,13 +973,7 @@ def main():
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in by_path["prox_fit"]}
 
-    fl = rollout_flops(M_STAGE3, T_ROLL)
-    weight_bytes = 4.0 * sum(t.numel() for part in (weights.prior,
-                                                    weights.decoder)
-                             for t in part[0] + part[1])
-    io_fwd = 4.0 * M_STAGE3 * (RK.CW + T_ROLL * (48 + RK.OUT_W + RK.CW))
-
-    b_fwd, by_fwd = bound(fl, weight_bytes + io_fwd)
+    b_fwd, by_fwd = fwd_bound(weights, M_STAGE3, T_ROLL)
     b_bwd, by_bwd = bwd_bound(weights, M_STAGE3, T_ROLL)
     b_nn, by_nn = nn_bound(nn_rec["shape"])
     kernels = [
@@ -919,7 +983,13 @@ def main():
          "launches": launches["rollout_fwd"],
          "max_abs_err": full["fwd_err"], "ms": full["fwd_ms"],
          "plain_ms": full["fwd_plain_ms"], "bound_ms": b_fwd,
-         "bound_by": by_fwd, "library_ms": None},
+         "bound_by": by_fwd, "library_ms": None,
+         "barriers_per_step": fwd_design["barriers_per_step"],
+         "grid_blocks": fwd_design["grid_blocks"],
+         "ms_m128": fwd_ms_128,
+         "bound_ms_m128": fwd_bound(weights, M_MAX, T_ROLL)[0],
+         "bit_identical": full["fwd_bit_identical"],
+         "edge_max_abs_err": fwd_edge_err},
         {"name": "rollout_bwd", "route": "cuda",
          "source": "humor_torch/csrc/rollout_bwd.cu",
          "replaces": "humor_tpu/ops/rollout_kernel.py:609",
@@ -930,7 +1000,7 @@ def main():
          "barriers_per_step": bwd_design["barriers_per_step"],
          "grid_blocks": bwd_design["grid_blocks"],
          "ms_m128": bwd_ms_128,
-         "bound_ms_m128": bwd_bound(weights, BWD_M_MAX, T_ROLL)[0],
+         "bound_ms_m128": bwd_bound(weights, M_MAX, T_ROLL)[0],
          "bit_identical": full["bwd_bit_identical"],
          "edge_max_scaled": bwd_edge_err},
         {"name": "nn_distance", "route": "cuda",

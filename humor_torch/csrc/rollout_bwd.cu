@@ -16,26 +16,18 @@
 // and transposed products) against 67 TFLOP/s of f32 outside the tensor
 // cores: 0.324 ms at T=59, M=16.
 //
-// Design. One block of 256 threads an SM (its shared memory allows no
-// more), launched with cudaLaunchCooperativeKernel, which refuses a grid
-// that cannot be co-resident; grid.sync() separates dependent phases.
-// * Weight-stationary: the 23 MB of weights are cut into 64 x 64 tiles
-//   (1,452 of them), dealt round-robin to the blocks (11 at most on 132
-//   SMs) and loaded into shared memory once per call. A tile serves both
-//   directions: the recompute's product reads its rows, the backward's
-//   transposed product (dh @ w^T) its columns; a swizzled layout keeps
-//   both reads free of bank conflicts. A phase then moves activations
-//   only, not weights.
-// * A product is split over K: a tile writes the partial sums of its
-//   K-slice for all M rows (row tiles of RT) and arrives at its output
-//   tile's counter (an integer atomic). Each output tile of a phase is
-//   dealt to one block, which waits for all its K-slices to arrive, sums
-//   the partials in slice order and finishes it: bias, GroupNorm(16) and
-//   ReLU (the 64 columns cover whole groups), or in the backward the
-//   GroupNorm+ReLU VJP at the stored pre-GroupNorm h, the z columns into
-//   dz. The next phase reads finished inputs. The order of the sums is
-//   fixed, not the order of arrival, so two runs give bit-identical
-//   outputs.
+// Design. The persistent machinery of rollout_persistent.cuh (shared with
+// the forward): one block of 256 threads an SM, launched with
+// cudaLaunchCooperativeKernel, which refuses a grid that cannot be
+// co-resident; the weights held in shared memory as 64 x 64 tiles loaded
+// once per call; split-K products whose output tiles are finished, 16
+// rows at a time, by dealt blocks after an integer-counter wait, in a
+// fixed summation order.
+// A tile serves both directions: the recompute's product reads its rows,
+// the backward's transposed product (dh @ w^T) its columns.
+// * The backward finish sums a slice's partials over the column tiles in
+//   order: the GroupNorm+ReLU VJP at the stored pre-GroupNorm h, the z
+//   columns into dz, layer 0's columns into dx.
 // * Phases of a step: F0-F4 recompute (F_i runs prior layer i and decoder
 //   layer i together), TL the tail VJP (one block a row), B0-B4 backward
 //   (B_k runs prior layer 4-k and decoder layer 3-k transposed). The
@@ -43,11 +35,8 @@
 //   backward of step t + 1: iteration t is F_k(t) | B_k(t + 1) for k =
 //   0..4, then TL(t). Barriers: 6 a step, 6 T + 6 a call (one after the
 //   weights are loaded). h is kept in two copies, by step parity.
-// Scratch written inside the launch is read only through L2 (__ldcg or
-// cp.async.cg), never through the non-coherent read-only path; only the
-// weights and the inputs are read that way. The arrival counters and dt2j
-// are zeroed in the kernel and dz is written before it is added to, so
-// the C entry enqueues nothing but the launch.
+// The arrival counters and dt2j are zeroed in the kernel and dz is written
+// before it is added to, so the C entry enqueues nothing but the launch.
 //
 // Why it is not nearer its bound: 6 T + 6 barriers at ~1.1 us each (0.40
 // ms at T=59, scripts/grid_barrier_study.py); a phase waits for its
@@ -62,6 +51,7 @@
 #include <stdint.h>
 
 #include "rollout_common.cuh"
+#include "rollout_persistent.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -302,50 +292,10 @@ __device__ void tail_vjp_row(int lane, const float* c, const float* t2j,
   }
 }
 
-constexpr int BT = 256;                // threads a block, one block an SM
-constexpr int TK = 64;                 // weight tile: TK rows of w
-constexpr int TN = 64;                 //   x TN columns
-constexpr int TILE = TK * TN;
-constexpr int RT = 16;                 // rows a row tile
-constexpr int LD_IN = TK + 4;          // staged input: RT rows of TK (= TN)
-constexpr int NBUF = 10;               // staged inputs in flight
-constexpr int MAX_TILES = 11;          // weight tiles a block holds
-constexpr int NL = 9;                  // prior layers 0-4, decoder 0-3
 constexpr int STAGES = 5;
 constexpr int BARRIERS_PER_STEP = STAGES + 1;
-constexpr int MAX_SLICES = (HID + LAT + TK - 1) / TK;
-constexpr int SMEM_FLOATS = MAX_TILES * TILE + NBUF * RT * LD_IN;
-constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
-static_assert(TK == TN && TK == 64, "square tiles of 16 float4 columns");
-static_assert(BT == 4 * (TN / 4) * (RT / 4), "thread = K quarter x 4 columns "
-                                              "x 4 rows");
-static_assert(RAW + PHEAD + 2 * CW + OUT_W <= NBUF * RT * LD_IN,
+static_assert(RAW + PHEAD + 2 * CW + OUT_W <= RING_FLOATS,
               "tail buffers fit");
-static_assert(SMEM_BYTES + 2048 <= 232448,
-              "shared memory of one block, with the static tables");
-
-// One layer: its weights and the buffers of its two products. Recompute:
-// out (M, n) = in (M, ka [+ z 48]) @ w; backward: d(input) (M, ka [+ 48])
-// = dh_in (M, n) @ w^T.
-struct Layer {
-  const float* w;      // (ka + kz) x n
-  const float* bias;   // n
-  const float* gs;     // GroupNorm affine on the output (the next layer's
-  const float* gb;     //   input), null for a head
-  const float* in;     // recompute input, rows of in_ld, + t * in_step
-  long long in_step;
-  const float* dh_in;  // backward input: d(output), M x n
-  float* part_f;       // recompute partials: slices x M x n
-  float* part_b;       // backward partials: n tiles x M x (ka + kz)
-  float* h;            // pre-GroupNorm output, 2 x M x n by step parity
-  float* out;          // relu(GroupNorm(h)), or a head's h (M x n)
-  float* dh_out;       // d(input), M x ka: the previous layer's dh, or dx
-  int* cnt_f;          // arrivals at each recompute output tile
-  int* cnt_b;          // arrivals at each backward output slice
-  int in_ld, ka, kz, n;
-  int tile0;           // first index of its tiles in the dealing order
-  int prev;            // the layer that feeds it, -1 for layer 0
-};
 
 struct Params {
   Layer L[NL];
@@ -363,346 +313,20 @@ struct Params {
   int n_counters, n_tiles, M, T;
 };
 
-__host__ __device__ inline int act_slices(const Layer& l) {
-  return (l.ka + TK - 1) / TK;
-}
-__host__ __device__ inline int slices(const Layer& l) {
-  return act_slices(l) + (l.kz > 0);
-}
-__host__ __device__ inline int col_tiles(const Layer& l) {
-  return (l.n + TN - 1) / TN;
-}
-// rows of w in slice s, and the first of them
-__host__ __device__ inline int slice_rows(const Layer& l, int s) {
-  return s < act_slices(l) ? min(TK, l.ka - s * TK) : l.kz;
-}
-__host__ __device__ inline int slice_row0(const Layer& l, int s) {
-  return s < act_slices(l) ? s * TK : l.ka;
-}
-
-// sum over s < S <= MAX_SLICES of p[s * stride], in order; every load is
-// issued before the first add
-__device__ __forceinline__ float sum_slices(const float* p, int S,
-                                            size_t stride) {
-  float u[MAX_SLICES];
-#pragma unroll
-  for (int s = 0; s < MAX_SLICES; ++s)
-    u[s] = s < S ? __ldcg(p + s * stride) : 0.f;
-  float v = u[0];
-#pragma unroll
-  for (int s = 1; s < MAX_SLICES; ++s)
-    if (s < S) v += u[s];
-  return v;
-}
-
-__device__ __forceinline__ float4 sum_slices4(const float* p, int S,
-                                              size_t stride) {
-  float4 u[MAX_SLICES];
-#pragma unroll
-  for (int s = 0; s < MAX_SLICES; ++s)
-    u[s] = s < S ? __ldcg(reinterpret_cast<const float4*>(p + s * stride))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 v = u[0];
-#pragma unroll
-  for (int s = 1; s < MAX_SLICES; ++s)
-    if (s < S) {
-      v.x += u[s].x; v.y += u[s].y; v.z += u[s].z; v.w += u[s].w;
-    }
-  return v;
-}
-
-// sum over the `lanes` lanes (8 or 16, aligned) that hold one group
-__device__ __forceinline__ float group_sum(float v, int lanes) {
-  for (int o = lanes >> 1; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-// global -> shared, asynchronous; zero-filled when !on
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool on) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(on ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool on) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(on ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A weight tile's element (k, c) sits in row k at float4 column
-// (c / 4) ^ f(k), f(k) = 2 ((k / 4) % 4) ^ 4 (k % 2). A K quarter q is the
-// float4 columns (or rows) q, q + 4, q + 8, q + 12 of its slice, so the
-// lanes of a quarter-warp (four quarters x two column groups, or x two
-// output rows) read eight different banks both in the recompute (rows
-// 4q + 16i + e) and in the backward (rows kg + 16j, float4 column q + 4i),
-// and the input rows are read at four float4 columns 4 apart.
-__device__ __forceinline__ int swz(int k, int c4) {
-  return k * TN + 4 * (c4 ^ (((k >> 2) & 3) << 1) ^ ((k & 1) << 2));
-}
-
-// The layer, K-slice and column tile of tile g of the dealing order.
-__device__ inline int decode(const Layer* Ls, int g, int* s, int* nn) {
-  for (int l = 0; l < NL; ++l) {
-    const Layer& L = Ls[l];
-    const int nt = col_tiles(L), i = g - L.tile0;
-    if (i >= 0 && i < slices(L) * nt) {
-      *s = i / nt;
-      *nn = i % nt;
-      return l;
-    }
-  }
-  return -1;
-}
-
-// The block's tiles, g = blockIdx.x + i * gridDim.x of the dealing order
-// (layer, K-slice, column tile in own[0..2][i]), into shared memory, zero
-// past the layer's rows and columns.
-__device__ void load_tiles(const Layer* Ls, const int (*own)[MAX_TILES],
-                           int n_own, float* tiles) {
-  for (int i = 0; i < n_own; ++i) {
-    const int s = own[1][i], nn = own[2][i];
-    const Layer& L = Ls[own[0][i]];
-    const int kw = slice_rows(L, s), k0 = slice_row0(L, s);
-    const int nw = min(TN, L.n - nn * TN);
-    for (int e = threadIdx.x; e < TK * TN / 4; e += BT) {
-      const int k = e / (TN / 4), c4 = e % (TN / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < kw && 4 * c4 < nw)
-        v = __ldg(reinterpret_cast<const float4*>(
-            L.w + (size_t)(k0 + k) * L.n + nn * TN + 4 * c4));
-      *reinterpret_cast<float4*>(tiles + i * TILE + swz(k, c4)) = v;
-    }
-  }
-}
-
-// A phase's lists, built by thread 0 in shared memory.
-struct StageLists {
-  int tasks[2 * MAX_TILES];
-  int seg_l[4], seg_step[4], seg_n[4];
-  int n, nseg;
-};
-
-// A work unit: one direction of one held tile for one row tile.
-struct Unit {
-  int l, s, nn, slot, bwd, row0, step;
-};
-
-// Start copying a unit's input (RT rows x 64 columns) into `buf`: the
-// recompute reads the K-slice s of its input (or z), the backward the
-// column tile nn of d(output). Zero past M and past the slice's width.
-__device__ void stage_input(const Params& P, const Layer* Ls, const Unit& u,
-                            float* buf) {
-  const Layer& L = Ls[u.l];
-  const int r = threadIdx.x >> 4, c = 4 * (threadIdx.x & 15);
-  const int row = u.row0 + r;
-  const bool on = row < P.M;
-  float* dst = buf + r * LD_IN + c;
-  if (u.bwd) {
-    const int nw = min(TN, L.n - u.nn * TN);
-    const float* src = L.dh_in + (size_t)row * L.n + u.nn * TN + c;
-    cp_async16(dst, on && c < nw ? src : L.dh_in, on && c < nw);
-  } else if (u.s >= act_slices(L)) {
-    const float* src = P.z + ((size_t)u.step * P.M + row) * LAT + c;
-    cp_async16(dst, on && c < LAT ? src : P.z, on && c < LAT);
-  } else {
-    const int kw = slice_rows(L, u.s);
-    const float* base = L.in + u.step * L.in_step;
-    const float* src = base + (size_t)row * L.in_ld + u.s * TK + c;
-    if (L.in_ld % 4 == 0) {
-      cp_async16(dst, on && c < kw ? src : base, on && c < kw);
-    } else {   // the carry's rows (351 floats) are not 16-byte aligned
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        cp_async4(dst + q, on && c + q < kw ? src + q : base,
-                  on && c + q < kw);
-    }
-  }
-}
-
-// The unit's product from its staged input and tile: thread (q, cg, rg)
-// sums K quarter q for rows 4rg..4rg+3 and four outputs; the quarters are
-// added across lanes in a fixed order. Writes the unit's partials.
-__device__ void unit_product(const Params& P, const Layer* Ls, const Unit& u,
-                             const float* in, const float* tile) {
-  const Layer& L = Ls[u.l];
-  const int q = threadIdx.x & 3, cg = (threadIdx.x >> 2) & 15;
-  const int rg = threadIdx.x >> 6;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const float* a0 = in + 4 * rg * LD_IN;
-  if (!u.bwd) {
-    // out[r][4cg + j] += in[r][k] * w[k][4cg + j], k in quarter q (rows
-    // past the slice are zero in the tile and the input)
-#pragma unroll
-    for (int k = 4 * q; k < TK; k += 16) {
-      float4 w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        w[e] = *reinterpret_cast<const float4*>(tile + swz(k + e, cg));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(a0 + i * LD_IN + k);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[i][0] = fmaf(av[e], w[e].x, acc[i][0]);
-          acc[i][1] = fmaf(av[e], w[e].y, acc[i][1]);
-          acc[i][2] = fmaf(av[e], w[e].z, acc[i][2]);
-          acc[i][3] = fmaf(av[e], w[e].w, acc[i][3]);
-        }
-      }
-    }
-  } else {
-    // out[r][cg + 16j] += dh[r][c] * w[cg + 16j][c], c in quarter q
-    // (columns past the layer are zero in the tile and the input)
-#pragma unroll
-    for (int c = 4 * q; c < TN; c += 16) {
-      float4 w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[j] = *reinterpret_cast<const float4*>(tile +
-                                                swz(cg + 16 * j, c >> 2));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(a0 + i * LD_IN + c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(a.x, w[j].x, acc[i][j]);
-          acc[i][j] = fmaf(a.y, w[j].y, acc[i][j]);
-          acc[i][j] = fmaf(a.z, w[j].z, acc[i][j]);
-          acc[i][j] = fmaf(a.w, w[j].w, acc[i][j]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], 1);
-      acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], 2);
-    }
-  if (q != 0) return;
-  const int M = P.M;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = u.row0 + 4 * rg + i;
-    if (row >= M) break;
-    if (!u.bwd) {
-      const int col = u.nn * TN + 4 * cg;
-      if (col < L.n)
-        *reinterpret_cast<float4*>(
-            L.part_f + ((size_t)u.s * M + row) * L.n + col) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-      const int ld = L.ka + L.kz, c0 = slice_row0(L, u.s);
-      const int kw = slice_rows(L, u.s);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (cg + 16 * j < kw)
-          L.part_b[((size_t)u.nn * M + row) * ld + c0 + cg + 16 * j] =
-              acc[i][j];
-    }
-  }
-}
-
-// Finish recompute output tile nn of layer l (all K-slices have arrived):
-// h = partials in slice order + bias; a head keeps h, a hidden layer keeps
-// h (its step's copy) and relu(GroupNorm(h) * gs + gb). A warp holds two
-// rows; a GroupNorm group of 64 or 32 columns is 16 or 8 lanes.
-__device__ void finish_fwd(const Params& P, const Layer* Ls, int l, int nn,
-                           int t) {
-  const Layer& L = Ls[l];
-  const int M = P.M, S = slices(L);
-  const int col = nn * TN + 4 * (threadIdx.x & 15);
-  const bool cv = col < L.n;
-  const int lanes = L.n / GROUPS / 4;
-  // the column's bias and GroupNorm affine, loaded once
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 b = zero, gs = zero, gb = zero;
-  if (cv) {
-    b = __ldg(reinterpret_cast<const float4*>(L.bias + col));
-    if (L.gs) {
-      gs = __ldg(reinterpret_cast<const float4*>(L.gs + col));
-      gb = __ldg(reinterpret_cast<const float4*>(L.gb + col));
-    }
-  }
-  const float gsv[4] = {gs.x, gs.y, gs.z, gs.w};
-  const float gbv[4] = {gb.x, gb.y, gb.z, gb.w};
-  for (int row0 = 0; row0 < M; row0 += BT / 16) {
-    const int row = row0 + (threadIdx.x >> 4);
-    const bool on = row < M && cv;
-    float4 v = zero;
-    if (on)
-      v = sum_slices4(L.part_f + (size_t)row * L.n + col, S,
-                      (size_t)M * L.n);
-    const float h[4] = {v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w};
-    if (!L.gs) {
-      if (on)
-        *reinterpret_cast<float4*>(L.out + (size_t)row * L.n + col) =
-            make_float4(h[0], h[1], h[2], h[3]);
-      continue;
-    }
-    if (on)
-      *reinterpret_cast<float4*>(L.h + ((size_t)(t & 1) * M + row) * L.n +
-                                 col) = make_float4(h[0], h[1], h[2], h[3]);
-    const float inv_g = 1.f / (4 * lanes);
-    const float mean = group_sum(h[0] + h[1] + h[2] + h[3], lanes) * inv_g;
-    float cent[4], sq = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      cent[e] = h[e] - mean;
-      sq += cent[e] * cent[e];
-    }
-    const float rstd = 1.f / sqrtf(group_sum(sq, lanes) * inv_g + GN_EPS);
-    if (!on) continue;
-    float y[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float ye = cent[e] * rstd * gsv[e] + gbv[e];
-      y[e] = ye > 0.f ? ye : 0.f;
-    }
-    *reinterpret_cast<float4*>(L.out + (size_t)row * L.n + col) =
-        make_float4(y[0], y[1], y[2], y[3]);
-  }
-}
-
-// Finish backward output slice s of layer l for step t: d(input) = the
-// partials in order. z columns go into dz[t] (written by decoder layer 3,
+// Finish rows row0..row0 + RT - 1 of backward output slice s of layer l for
+// step t: d(input) = the partials in order. z columns go into dz[t] (written by decoder layer 3,
 // the first to finish, added to by layers 2, 1, 0); layer 0's other
 // columns are dx; a hidden layer's become the previous layer's dh through
 // the GroupNorm+ReLU VJP at its stored h.
 __device__ void finish_bwd(const Params& P, const Layer* Ls, int l, int s,
-                           int t) {
+                           int t, int row0) {
   const Layer& L = Ls[l];
   const int M = P.M, S = col_tiles(L), ld = L.ka + L.kz;
   const int kw = slice_rows(L, s), c0 = slice_row0(L, s);
   const int c = 4 * (threadIdx.x & 15);
   const bool zs = s >= act_slices(L);
   // a hidden layer's input columns: their GroupNorm affine (the previous
-  // layer's output affine), loaded once
+  // layer's output affine)
   float4 gs = make_float4(0.f, 0.f, 0.f, 0.f), gb = gs;
   if (!zs && L.prev >= 0) {
     gs = __ldg(reinterpret_cast<const float4*>(Ls[L.prev].gs + c0 + c));
@@ -710,172 +334,63 @@ __device__ void finish_bwd(const Params& P, const Layer* Ls, int l, int s,
   }
   const float gsv[4] = {gs.x, gs.y, gs.z, gs.w};
   const float gbv[4] = {gb.x, gb.y, gb.z, gb.w};
-  for (int row0 = 0; row0 < M; row0 += BT / 16) {
-    const int row = row0 + (threadIdx.x >> 4);
-    const bool rv = row < M;
-    if (zs || L.prev < 0) {
-      // columns one by one: layer 0's rows (339, 387) are not aligned
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (!rv || c + e >= kw) continue;
-        const float v = sum_slices(L.part_b + (size_t)row * ld + c0 + c + e,
-                                   S, (size_t)M * ld);
-        if (zs) {
-          float* d = P.dz + ((size_t)t * M + row) * LAT + c + e;
-          *d = l == NL - 1 ? v : __ldcg(d) + v;
-        } else {
-          L.dh_out[(size_t)row * L.ka + c0 + c + e] = v;
-        }
-      }
-      continue;
-    }
-    const Layer& Lp = Ls[L.prev];
-    const int col = c0 + c;
-    float4 da = make_float4(0.f, 0.f, 0.f, 0.f), hv = da;
-    if (rv) {
-      da = sum_slices4(L.part_b + (size_t)row * ld + col, S,
-                       (size_t)M * ld);
-      hv = __ldcg(reinterpret_cast<const float4*>(
-          Lp.h + ((size_t)(t & 1) * M + row) * L.ka + col));
-    }
-    const int lanes = L.ka / GROUPS / 4;
-    const float inv_g = 1.f / (4 * lanes);
-    const float h[4] = {hv.x, hv.y, hv.z, hv.w};
-    const float dav[4] = {da.x, da.y, da.z, da.w};
-    const float mean = group_sum(h[0] + h[1] + h[2] + h[3], lanes) * inv_g;
-    float cent[4], sq = 0.f;
+  const int row = row0 + (threadIdx.x >> 4);
+  const bool rv = row < M;
+  if (zs || L.prev < 0) {
+    // columns one by one: layer 0's rows (339, 387) are not aligned
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      cent[e] = h[e] - mean;
-      sq += cent[e] * cent[e];
-    }
-    const float r = 1.f / sqrtf(group_sum(sq, lanes) * inv_g + GN_EPS);
-    float gg[4], gc = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float y = cent[e] * r * gsv[e] + gbv[e];
-      gg[e] = (y > 0.f ? dav[e] : 0.f) * gsv[e];
-      gc += gg[e] * cent[e];
-    }
-    const float mgc = group_sum(gc, lanes) * inv_g;
-    float dcent[4], dc = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dcent[e] = r * gg[e] - r * r * r * cent[e] * mgc;
-      dc += dcent[e];
-    }
-    const float mdc = group_sum(dc, lanes) * inv_g;
-    if (rv)
-      *reinterpret_cast<float4*>(L.dh_out + (size_t)row * L.ka + col) =
-          make_float4(dcent[0] - mdc, dcent[1] - mdc, dcent[2] - mdc,
-                      dcent[3] - mdc);
-  }
-}
-
-// Phase k of iteration t: for every held tile, the recompute F_k of step t
-// (t >= 0) and the backward B_k of step t + 1 (t + 1 < T) where its layer
-// takes part. Units (tile, direction, row tile) run in order with NBUF - 1
-// inputs in flight and store their partials; then each task arrives at
-// its output tile's counter (one atomic a task, all at once), and the
-// block finishes the output tiles dealt to it once all their K-slices
-// have arrived.
-__device__ void run_stage(const Params& P, const Layer* Ls,
-                          const int (*own)[MAX_TILES], int n_own, int k,
-                          int t, const float* tiles, float* ring,
-                          StageLists& sl) {
-  const int R = (P.M + RT - 1) / RT;
-  // this block's tasks, (slot, direction) in slot order, and the phase's
-  // output tiles in segments (layer, step, count), listed in shared memory
-  // (a thread-local array indexed at run time would live in local memory,
-  // which the large shared-memory carve-out leaves little L1 to cache)
-  if (threadIdx.x == 0) {
-    int n = 0;
-    for (int i = 0; i < n_own; ++i) {
-      const int l = own[0][i];
-      if (t >= 0 && (l == k || (k < 4 && l == 5 + k))) sl.tasks[n++] = 2 * i;
-      if (t + 1 < P.T && (l == 4 - k || (k < 4 && l == 8 - k)))
-        sl.tasks[n++] = 2 * i + 1;
-    }
-    sl.n = n;
-    int nseg = 0;
-    for (int dir = 0; dir < 2; ++dir) {
-      const int step = dir ? t + 1 : t;
-      if (step < 0 || step >= P.T) continue;
-      for (int j = 0; j < (k < 4 ? 2 : 1); ++j) {
-        const int l = dir ? (j ? 8 - k : 4 - k) : (j ? 5 + k : k);
-        sl.seg_l[nseg] = dir ? -1 - l : l;   // negative: the backward's
-        sl.seg_step[nseg] = step;
-        sl.seg_n[nseg++] = dir ? slices(Ls[l]) : col_tiles(Ls[l]);
+      if (!rv || c + e >= kw) continue;
+      const float v = sum_slices(L.part_b + (size_t)row * ld + c0 + c + e,
+                                 S, (size_t)M * ld);
+      if (zs) {
+        float* d = P.dz + ((size_t)t * M + row) * LAT + c + e;
+        *d = l == NL - 1 ? v : __ldcg(d) + v;
+      } else {
+        L.dh_out[(size_t)row * L.ka + c0 + c + e] = v;
       }
     }
-    sl.nseg = nseg;
+    return;
   }
-  __syncthreads();
-  const int n = sl.n;
-  const int* tasks = sl.tasks;
-  const int units = n * R;
-  auto unit = [&](int x) {
-    Unit u;
-    const int task = tasks[x / R];
-    u.slot = task >> 1;
-    u.bwd = task & 1;
-    u.row0 = (x % R) * RT;
-    u.step = u.bwd ? t + 1 : t;
-    u.l = own[0][u.slot];
-    u.s = own[1][u.slot];
-    u.nn = own[2][u.slot];
-    return u;
-  };
-  for (int x = 0; x < NBUF - 1; ++x) {
-    if (x < units)
-      stage_input(P, Ls, unit(x), ring + (x % NBUF) * RT * LD_IN);
-    cp_async_commit();
+  const Layer& Lp = Ls[L.prev];
+  const int col = c0 + c;
+  float4 da = make_float4(0.f, 0.f, 0.f, 0.f), hv = da;
+  if (rv) {
+    da = sum_slices4(L.part_b + (size_t)row * ld + col, S, (size_t)M * ld);
+    hv = __ldcg(reinterpret_cast<const float4*>(
+        Lp.h + ((size_t)(t & 1) * M + row) * L.ka + col));
   }
-  for (int x = 0; x < units; ++x) {
-    cp_async_wait<NBUF - 2>();
-    __syncthreads();   // unit x staged; unit x - 1's buffer free
-    const int nx = x + NBUF - 1;
-    if (nx < units)
-      stage_input(P, Ls, unit(nx), ring + (nx % NBUF) * RT * LD_IN);
-    cp_async_commit();
-    const Unit u = unit(x);
-    unit_product(P, Ls, u, ring + (x % NBUF) * RT * LD_IN,
-                 tiles + u.slot * TILE);
+  const int lanes = L.ka / GROUPS / 4;
+  const float inv_g = 1.f / (4 * lanes);
+  const float h[4] = {hv.x, hv.y, hv.z, hv.w};
+  const float dav[4] = {da.x, da.y, da.z, da.w};
+  const float mean = group_sum(h[0] + h[1] + h[2] + h[3], lanes) * inv_g;
+  float cent[4], sq = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    cent[e] = h[e] - mean;
+    sq += cent[e] * cent[e];
   }
-  cp_async_wait<0>();
-  // every partial of every task is stored: arrive
-  __threadfence();
-  __syncthreads();
-  if ((int)threadIdx.x < n) {
-    const Unit u = unit(threadIdx.x * R);
-    const Layer& L = Ls[u.l];
-    atomicAdd(u.bwd ? L.cnt_b + u.s : L.cnt_f + u.nn, 1);
+  const float r = 1.f / sqrtf(group_sum(sq, lanes) * inv_g + GN_EPS);
+  float gg[4], gc = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float y = cent[e] * r * gsv[e] + gbv[e];
+    gg[e] = (y > 0.f ? dav[e] : 0.f) * gsv[e];
+    gc += gg[e] * cent[e];
   }
-  // the phase's output tiles, dealt to the blocks from the last one down
-  // (the products are dealt from the first): this block waits for each of
-  // its tiles' K-slices to arrive and finishes it
-  for (int i = gridDim.x - 1 - blockIdx.x;; i += gridDim.x) {
-    int sg = 0, o = i;
-    while (sg < sl.nseg && o >= sl.seg_n[sg]) o -= sl.seg_n[sg++];
-    if (sg == sl.nseg) break;
-    const bool bwd = sl.seg_l[sg] < 0;
-    const int l = bwd ? -1 - sl.seg_l[sg] : sl.seg_l[sg];
-    const Layer& L = Ls[l];
-    if (threadIdx.x == 0) {
-      int* cnt = bwd ? L.cnt_b + o : L.cnt_f + o;
-      const int need = bwd ? col_tiles(L) : slices(L);
-      while (ld_acquire(cnt) != need) {
-      }
-      *cnt = 0;
-    }
-    __syncthreads();
-    __threadfence();
-    if (bwd)
-      finish_bwd(P, Ls, l, o, sl.seg_step[sg]);
-    else
-      finish_fwd(P, Ls, l, o, sl.seg_step[sg]);
-    __syncthreads();
+  const float mgc = group_sum(gc, lanes) * inv_g;
+  float dcent[4], dc = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    dcent[e] = r * gg[e] - r * r * r * cent[e] * mgc;
+    dc += dcent[e];
   }
+  const float mdc = group_sum(dc, lanes) * inv_g;
+  if (rv)
+    *reinterpret_cast<float4*>(L.dh_out + (size_t)row * L.ka + col) =
+        make_float4(dcent[0] - mdc, dcent[1] - mdc, dcent[2] - mdc,
+                    dcent[3] - mdc);
 }
 
 // The carry cotangent entering the tail of the step before the one whose
@@ -943,38 +458,45 @@ __device__ void tail_phase(const Params& P, const Layer* Ls, int t,
 __global__ void __launch_bounds__(BT, 1)
     rollout_bwd_kernel(const __grid_constant__ Params P) {
   extern __shared__ float4 smem4[];
-  // the layer table and the block's tiles, read from shared memory
-  __shared__ Layer Ls[NL];
-  __shared__ int own[3][MAX_TILES];
-  __shared__ int n_own;
-  __shared__ StageLists lists;
+  // the layer table, the block's tiles and a phase's lists
+  __shared__ BlockState bs;
   float* tiles = reinterpret_cast<float*>(smem4);
   float* ring = tiles + MAX_TILES * TILE;
   cg::grid_group grid = cg::this_grid();
-  for (int i = threadIdx.x; i < NL * (int)sizeof(Layer) / 4; i += BT)
-    reinterpret_cast<int*>(Ls)[i] = reinterpret_cast<const int*>(P.L)[i];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int i = 0;
-    for (int g = blockIdx.x; g < P.n_tiles && i < MAX_TILES;
-         g += gridDim.x, ++i)
-      own[0][i] = decode(Ls, g, &own[1][i], &own[2][i]);
-    n_own = i;
-  }
-  for (int i = blockIdx.x * BT + threadIdx.x; i < P.n_counters;
-       i += gridDim.x * BT)
-    P.counters[i] = 0;
   for (int i = blockIdx.x * BT + threadIdx.x; i < 3 * P.M;
        i += gridDim.x * BT)
     P.dt2j[i] = 0.f;
-  __syncthreads();
-  load_tiles(Ls, own, n_own, tiles);
+  block_setup(P.L, P.n_tiles, P.counters, P.n_counters, bs, tiles);
   grid.sync();
+  const Layer* Ls = bs.Ls;
+  auto finish = [&](bool bwd, int l, int o, int step, int row0) {
+    if (bwd)
+      finish_bwd(P, Ls, l, o, step, row0);
+    else
+      finish_fwd(Ls, P.M, l, o, step, row0);
+  };
   // iteration t: the recompute of step t beside the backward of step t + 1,
   // then the tail of step t
   for (int t = P.T - 1; t >= -1; --t) {
+    const int tb = t + 1;
     for (int k = 0; k < STAGES; ++k) {
-      run_stage(P, Ls, own, n_own, k, t, tiles, ring, lists);
+      // F_k: prior layer k, decoder layer k; B_k: prior layer 4 - k,
+      // decoder layer 3 - k; a step's counters are used for the
+      // (T - step)-th time
+      if (threadIdx.x == 0) {
+        int n = 0;
+        if (t >= 0) {
+          bs.plan.set(n++, k, false, t, P.T - t);
+          if (k < 4) bs.plan.set(n++, 5 + k, false, t, P.T - t);
+        }
+        if (tb < P.T) {
+          bs.plan.set(n++, 4 - k, true, tb, P.T - tb);
+          if (k < 4) bs.plan.set(n++, 8 - k, true, tb, P.T - tb);
+        }
+        bs.plan.n = n;
+      }
+      stage_products(bs, P.M, P.z, tiles, ring);
+      stage_finishes(bs, finish);
       grid.sync();
     }
     if (t >= 0) {
@@ -991,52 +513,16 @@ __global__ void __launch_bounds__(BT, 1)
 // Host side: the layer table and the launch
 // ---------------------------------------------------------------------------
 
-// Hands out scratch in 16-byte-aligned pieces; with a null base it only
-// counts.
-struct Carver {
-  uintptr_t base;
-  size_t off;
-  float* take(size_t n) {
-    float* p = reinterpret_cast<float*>(base + off * sizeof(float));
-    off += (n + 3) & ~size_t(3);
-    return p;
-  }
-};
-
 // Fills the layer table; returns the scratch floats it needs.
 inline size_t build(Params& P, const RolloutWeights& w, float* scratch,
                     int M) {
   Carver cv{reinterpret_cast<uintptr_t>(scratch), 0};
-  const int DW[4] = {HID, HID, 512, RAW};      // decoder layer widths
-  for (int i = 0; i < NL; ++i) {
-    Layer& L = P.L[i];
-    L = Layer{};
-    const bool prior = i < 5;
-    const int j = prior ? i : i - 5;            // index within its MLP
-    const int last = prior ? 4 : 3;
-    L.w = prior ? w.pw[j] : w.dw[j];
-    L.bias = prior ? w.pb[j] : w.db[j];
-    if (j < last) {
-      L.gs = prior ? w.pgs[j + 1] : w.dgs[j + 1];
-      L.gb = prior ? w.pgb[j + 1] : w.dgb[j + 1];
-    }
-    L.n = prior ? (j < 4 ? HID : PHEAD) : DW[j];
-    L.ka = j == 0 ? D_X : (prior ? HID : DW[j - 1]);
-    L.kz = prior ? 0 : LAT;
-    L.prev = j == 0 ? -1 : i - 1;
-    if (j == 0) {
-      L.in = P.saved;
-      L.in_ld = CW;
-      L.in_step = (long long)M * CW;
-    } else {
-      L.in = P.L[i - 1].out;
-      L.in_ld = L.ka;
-    }
-    L.part_f = cv.take((size_t)slices(L) * M * L.n);
-    L.part_b = cv.take((size_t)col_tiles(L) * M * (L.ka + L.kz));
-    if (j < last) L.h = cv.take(2 * (size_t)M * L.n);
-    L.out = cv.take((size_t)M * L.n);
-    L.dh_out = cv.take((size_t)M * L.ka);
+  P.n_tiles = build_layers(P.L, w, cv, M, true, &P.counters, &P.n_counters);
+  const int first[2] = {0, 5};   // layer 0 of each MLP
+  for (int i : first) {
+    P.L[i].in = P.saved;
+    P.L[i].in_ld = CW;
+    P.L[i].in_step = (long long)M * CW;
   }
   for (int k = 0; k < 2; ++k) P.dcur[k] = cv.take((size_t)M * CW);
   P.ddraw = cv.take((size_t)M * RAW);
@@ -1046,55 +532,7 @@ inline size_t build(Params& P, const RolloutWeights& w, float* scratch,
     const bool head = i == 4 || i == NL - 1;
     L.dh_in = head ? (i == 4 ? P.dp : P.ddraw) : P.L[i + 1].dh_out;
   }
-  // counters (ints) after the floats
-  int n_cnt = 0;
-  for (int i = 0; i < NL; ++i) n_cnt += col_tiles(P.L[i]) + slices(P.L[i]);
-  int* cnt = reinterpret_cast<int*>(cv.take(n_cnt));
-  P.counters = cnt;
-  P.n_counters = n_cnt;
-  for (int i = 0; i < NL; ++i) {
-    P.L[i].cnt_f = cnt;
-    cnt += col_tiles(P.L[i]);
-    P.L[i].cnt_b = cnt;
-    cnt += slices(P.L[i]);
-  }
-  // dealing order: layers of the same phases apart, so that every phase's
-  // tiles spread evenly over the blocks
-  const int order[NL] = {2, 6, 1, 7, 3, 5, 0, 4, 8};
-  int g = 0;
-  for (int i = 0; i < NL; ++i) {
-    Layer& L = P.L[order[i]];
-    L.tile0 = g;
-    g += slices(L) * col_tiles(L);
-  }
-  P.n_tiles = g;
   return cv.off;
-}
-
-// Co-resident blocks on the current device, queried once a device after
-// the dynamic shared-memory limit is set.
-static cudaError_t grid_blocks(int* blocks) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e) return e;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!cached[dev]) {
-    e = cudaFuncSetAttribute(rollout_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
-    if (e) return e;
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rollout_bwd_kernel, BT, SMEM_BYTES);
-    if (e) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e) return e;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    cached[dev] = per_sm * sms;
-  }
-  *blocks = cached[dev];
-  return cudaSuccess;
 }
 
 }  // namespace humor
@@ -1111,7 +549,8 @@ long long rollout_bwd_scratch_floats(int M) {
 // The grid of every launch (blocks), or minus the CUDA error of the query.
 int rollout_bwd_grid_blocks(void) {
   int blocks = 0;
-  const cudaError_t e = grid_blocks(&blocks);
+  const cudaError_t e =
+      grid_blocks(reinterpret_cast<const void*>(rollout_bwd_kernel), &blocks);
   return e ? -(int)e : blocks;
 }
 
@@ -1128,23 +567,16 @@ int rollout_bwd(const RolloutWeights* w, const float* saved, const float* z,
                 const float* t2j, const float* dout, float* dcarry0, float* dz,
                 float* dt2j, float* scratch, int M, int T, void* stream) {
   if (M < 1 || T < 1) return cudaErrorInvalidValue;
+  const void* kernel = reinterpret_cast<const void*>(rollout_bwd_kernel);
   int blocks = 0;
-  cudaError_t e = grid_blocks(&blocks);
+  cudaError_t e = grid_blocks(kernel, &blocks);
   if (e) return e;
   Params P = {};
   P.saved = saved; P.z = z; P.t2j = t2j; P.dout = dout;
   P.dcarry0 = dcarry0; P.dz = dz; P.dt2j = dt2j;
   P.M = M; P.T = T;
   build(P, *w, scratch, M);
-  if ((P.n_tiles + blocks - 1) / blocks > MAX_TILES)
-    return cudaErrorInvalidConfiguration;
-  void* args[] = {&P};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(rollout_bwd_kernel),
-                                  dim3(blocks), dim3(BT), args,
-                                  (size_t)SMEM_BYTES,
-                                  static_cast<cudaStream_t>(stream));
-  if (e) return e;
-  return cudaGetLastError();
+  return launch(kernel, P, P.n_tiles, blocks, stream);
 }
 
 }  // extern "C"

@@ -22,16 +22,17 @@ f32 matmul (0.19 GFLOP at M=16, ~11 GFLOP per 59-step rollout) against
 50 MB L2, so device-memory bytes are a bound only on the first step.
 The backward recomputes each step's activations from the saved entry
 carry and then runs the transposed products, about twice the forward's
-work. At M=16 the real limit is parallelism: a 16-row product gives few
-blocks, so the kernels split K over blocks. The forward's C entry loops
-over the steps on the stream, a split-K product (128-deep slices) and a
-fused epilogue kernel (bias, GroupNorm, ReLU) a layer; its weights stay
-in L2 after the first step. The backward is one persistent cooperative
-launch a rollout that holds the weights in its blocks' shared memory as
-64 x 64 tiles serving both directions, runs the recompute of step t
-beside the backward of step t + 1 (6 grid-wide barriers a step) and
-finishes each split-K output tile in one block dealt it (see
-csrc/rollout_bwd.cu). Math is plain f32 FMA: no TF32, no bf16.
+work. At M=16 the real limit is parallelism: a 16-row product gives
+little work to spread over 132 SMs. Each kernel is one persistent
+cooperative launch a rollout (csrc/rollout_persistent.cuh): one block an
+SM holds a share of the weights in shared memory as 64 x 64 tiles loaded
+once a call, a product is split over K into those tiles, and each split-K
+output tile is finished by one block dealt it, in a fixed summation order.
+The forward runs prior layer k beside decoder layer k, then the tail, with
+the prior head beside the next step's first layers (5 grid-wide barriers a
+step, csrc/rollout_fwd.cu); the
+backward runs the recompute of step t beside the backward of step t + 1
+(6 a step, csrc/rollout_bwd.cu). Math is plain f32 FMA: no TF32, no bf16.
 
 Layout (shared by the kernels and the plain versions):
   carry (M, 351) = x (339: trans 3 | trans_vel 3 | root 9 | root_vel 3 |
@@ -508,26 +509,37 @@ def _lib(name):
     lib = cuda_build.load(name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        ptrs = 6 if name == "rollout_fwd" else 8
+        fwd = name == "rollout_fwd"
+        ptrs = 6 if fwd else 8
         fn.argtypes = ([ctypes.POINTER(_WeightsStruct)] + [_P] * ptrs
                        + [ctypes.c_int, ctypes.c_int, _P])
         fn.restype = ctypes.c_int
-        scratch = (lib.rollout_scratch_floats if name == "rollout_fwd"
-                   else lib.rollout_bwd_scratch_floats)
-        scratch.argtypes = [ctypes.c_int]
+        scratch = getattr(lib, name + "_scratch_floats")
+        # the forward's scratch holds the running carry of every step
+        scratch.argtypes = [ctypes.c_int] * (2 if fwd else 1)
         scratch.restype = ctypes.c_longlong
     return lib
+
+
+def _design(name) -> Dict[str, int]:
+    lib = _lib(name)
+    blocks = getattr(lib, name + "_grid_blocks")()
+    if blocks <= 0:
+        cuda_build.check(lib, -blocks, name + " grid query")
+    return {"grid_blocks": blocks,
+            "barriers_per_step": getattr(lib, name + "_barriers_per_step")()}
+
+
+def forward_design() -> Dict[str, int]:
+    """The forward kernel's launch on this device: blocks of its grid and
+    grid-wide barriers a step (loads and builds it; needs a GPU)."""
+    return _design("rollout_fwd")
 
 
 def backward_design() -> Dict[str, int]:
     """The backward kernel's launch on this device: blocks of its grid and
     grid-wide barriers a step (loads and builds it; needs a GPU)."""
-    lib = _lib("rollout_bwd")
-    blocks = lib.rollout_bwd_grid_blocks()
-    if blocks <= 0:
-        cuda_build.check(lib, -blocks, "rollout_bwd grid query")
-    return {"grid_blocks": blocks,
-            "barriers_per_step": lib.rollout_bwd_barriers_per_step()}
+    return _design("rollout_bwd")
 
 
 def _forward_cuda(w: RolloutWeights, carry0, z, t2j):
@@ -539,7 +551,8 @@ def _forward_cuda(w: RolloutWeights, carry0, z, t2j):
     lib = _lib("rollout_fwd")
     out = torch.empty(T, M, OUT_W, device=w.device)
     saved = torch.empty(T, M, CW, device=w.device)
-    scratch = torch.empty(lib.rollout_scratch_floats(M), device=w.device)
+    scratch = torch.empty(lib.rollout_fwd_scratch_floats(M, T),
+                          device=w.device)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     rc = lib.rollout_fwd(ctypes.byref(w.struct()), carry0.data_ptr(),
                          z.data_ptr(), t2j.data_ptr(), out.data_ptr(),

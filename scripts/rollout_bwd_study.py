@@ -1,33 +1,46 @@
 #!/usr/bin/env python3
-"""Build sources of the rollout backward kernel and report, for each, what
-ptxas says (registers, spills), its time on the card, and where a call's
-time goes phase by phase.
+"""Build sources of a rollout kernel and report, for each, what ptxas says
+(registers, spills), its time on the card, and where a call's time goes
+phase by phase.
 
     python3 scripts/rollout_bwd_study.py humor_torch/csrc/rollout_bwd.cu \
         _proof/rollout_bwd_other.cu
+    python3 scripts/rollout_fwd_study.py humor_torch/csrc/rollout_fwd.cu \
+        _proof/old/rollout_fwd.cu
 
-Each source has the C interface of humor_torch/csrc/rollout_bwd.cu: an
-earlier version (`git show REV:path`) or a copy with other sizes, kept in
-a directory .gitignore lists. Each is built with the port's nvcc flags
-plus `-Xptxas -v` (and humor_torch/csrc on the include path) into
-build/rollout_bwd_study/, twice: as it is, and as
-a traced copy in which thread 0 of block 0 stores clock64() after every
-grid.sync(). Times are CUDA events over 5 calls at T=59 and M = 16 and
-128 (the damped weights and inputs of chip_smoke.py), the sources in
-turns (a b ... b a). The traced copy, run once at each M, gives each
-phase's share of the call (F0-F4 recompute, TL tail, B0-B4 backward:
-the cycles from one barrier to the next, averaged over the steps; with
-F_k of step t beside B_k of step t + 1 where the source pipelines them)
-and, scaled by the untraced time, its microseconds a step. Where the
-source has the current layout, a third copy in which thread 0 of every
-block adds up its cycles by activity (waiting for a unit's input, the
+Each source has the C interface of humor_torch/csrc/rollout_bwd.cu (this
+script) or of rollout_fwd.cu (rollout_fwd_study.py, which runs this
+script's `main` for the forward): an earlier version (`git show
+REV:path`) or a copy with other sizes, kept in a directory .gitignore
+lists. Each is built with the port's nvcc flags plus `-Xptxas -v` (with
+the source's own directory, then humor_torch/csrc, on the include path,
+so that an older source finds the headers it was written against where
+they are put beside it) into build/rollout_study/, up to three times:
+as it is; where it has grid barriers, as a traced copy in which thread 0
+of block 0 stores clock64() after every grid.sync(); and, where it has the
+current layout, as a copy in which thread 0 of every block adds up its
+cycles by activity. The current sources' shared machinery
+(rollout_persistent.cuh) is pasted into the copies, so that the marks
+reach into it.
+
+Times are CUDA events over 5 calls at T=59 and M = 16 and 128 (the damped
+weights and inputs of chip_smoke.py), the sources in turns (a b ... b a).
+The traced copy, run once at each M, gives each phase's share of the call
+(the cycles from one barrier to the next, averaged over the steps: the
+backward's F0-F4 recompute, TL tail, B0-B4 backward, with F_k of step t
+beside B_k of step t + 1 where the source pipelines them; the forward's
+P_k|D_k, the previous step's P4 in phase 0, and TL) and, scaled by the
+untraced time, its microseconds a
+step. A source without grid barriers (a launch a layer) gives instead the
+device time of each of its kernels a step, from torch.profiler. The
+activity copy (listing a phase's tasks, waiting for a unit's input, the
 units' products, arriving, waiting for a finished tile's K-slices,
-finishing it, the tail, the barriers, the rest) gives each activity's
-microseconds a step, the mean over blocks and the largest. Needs a GPU and
-nvcc; prints one JSON line per source, then the card's name and power
-limit.
+finishing it, the tail, the barriers, the rest) gives each activity's microseconds a step, the
+mean over blocks and the largest. Needs a GPU and nvcc; prints one JSON
+line per source, then the card's name and power limit.
 """
 
+import collections
 import ctypes
 import json
 import re
@@ -39,14 +52,25 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 STEPS = 59
-STAGES = 5             # phases after the last tail of a pipelined source
 ROWS = (16, 128)
-# the phases between two barriers, by a source's barriers a step: one
-# phase each (F0-F4, the tail, B0-B4), or F_k of step t beside B_k of step
-# t + 1, then the tail of step t
-PHASE_NAMES = {11: ("F0", "F1", "F2", "F3", "F4", "TL", "B0", "B1", "B2",
-                    "B3", "B4"),
-               6: ("F0|B0", "F1|B1", "F2|B2", "F3|B3", "F4|B4", "TL")}
+HEADER = "rollout_persistent.cuh"
+# per kernel: its C entry's pointer arguments, the phases between two
+# barriers by a source's barriers a step, and the phases after the last
+# step's (a pipelined backward runs 5 more, the forward its last prior
+# head)
+KINDS = {
+    "rollout_bwd": {
+        "ptrs": 8,
+        "phases": {11: ("F0", "F1", "F2", "F3", "F4", "TL", "B0", "B1",
+                        "B2", "B3", "B4"),
+                   6: ("F0|B0", "F1|B1", "F2|B2", "F3|B3", "F4|B4", "TL")},
+        "trailing": {11: 0, 6: 5}},
+    "rollout_fwd": {
+        "ptrs": 6,
+        "phases": {5: ("P0|D0|P4", "P1|D1", "P2|D2", "P3|D3", "TL")},
+        "trailing": {5: 1}},
+}
+COMMON = '#include "rollout_common.cuh"'
 MARK_DEFS = """
 __device__ long long humor_marks[1 << 16];
 __device__ __forceinline__ void humor_mark(long long i) {
@@ -56,9 +80,9 @@ __device__ __forceinline__ void humor_mark(long long i) {
 # where a block's time goes, summed over a call: thread 0 of every block
 # adds the clock64() cycles since its previous tick to a slot
 SLOTS = ("other", "barrier", "input_wait", "product", "finish", "tail",
-         "arrive", "finish_wait")
+         "arrive", "finish_wait", "listing")
 TICK_DEFS = """
-__device__ long long humor_slots[1024][8];
+__device__ long long humor_slots[1024][16];
 __device__ long long humor_last[1024];
 __device__ __forceinline__ void humor_tick(int slot) {
   if (threadIdx.x == 0) {
@@ -70,26 +94,33 @@ __device__ __forceinline__ void humor_tick(int slot) {
 """
 TICK_READ = """
 extern "C" int humor_clear_slots(void) {
-  static long long zero[1024 * 8];
+  static long long zero[1024 * 16];
   return (int)cudaMemcpyToSymbol(humor_slots, zero, sizeof(zero));
 }
 extern "C" int humor_read_slots(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, humor_slots, sizeof(long long) * 8192);
+  return (int)cudaMemcpyFromSymbol(out, humor_slots,
+                                   sizeof(long long) * 16384);
 }
 """
-# (anchor, text after it) of the ticks in the current source's layout
+# (anchors, text after it) of the ticks in the current layout: the first
+# anchor found once is used (the first ones are the current sources',
+# with the header pasted in; the others the earlier single-file
+# backward's)
 TICK_AT = (
-    ("cg::grid_group grid = cg::this_grid();",
+    (("cg::grid_group grid = cg::this_grid();",),
      "\n if (threadIdx.x == 0) humor_last[blockIdx.x] = clock64();"),
-    ("    __syncthreads();   // unit x staged; unit x - 1's buffer free\n",
+    (("    __syncthreads();   // unit x staged; unit x - 1's buffer free\n",),
      " humor_tick(2);\n"),
-    ("                 tiles + u.slot * TILE);\n", " humor_tick(3);\n"),
-    ("    atomicAdd(u.bwd ? L.cnt_b + u.s : L.cnt_f + u.nn, 1);\n  }\n",
+    (("                 tiles + u.slot * TILE);\n",), " humor_tick(3);\n"),
+    (("    atomicAdd(u.bwd ? L.cnt_b + u.s : L.cnt_f + u.nn, 1);\n  }\n",),
      " humor_tick(6);\n"),
-    ("      *cnt = 0;\n    }\n    __syncthreads();\n", " humor_tick(7);\n"),
-    ("      finish_fwd(P, Ls, l, o, sl.seg_step[sg]);\n    __syncthreads();\n",
+    (("    __syncthreads();   // the tile's K-slices have arrived\n",
+      "      *cnt = 0;\n    }\n    __syncthreads();\n"), " humor_tick(7);\n"),
+    (("    finish(bwd, l, tile, sl.seg_step[sg], row0);\n    __syncthreads();\n",
+      "      finish_fwd(P, Ls, l, o, sl.seg_step[sg]);\n    __syncthreads();\n"),
      " humor_tick(4);\n"),
-    ("      tail_phase(P, Ls, t, ring);\n", " humor_tick(5);\n"),
+    (("      tail_phase(P, Ls, t, ring);\n",), " humor_tick(5);\n"),
+    (("  __syncthreads();\n  const int n = sl.n;\n",), " humor_tick(8);\n"),
 )
 MARK_READ = """
 extern "C" int humor_clear_marks(void) {
@@ -108,13 +139,28 @@ def smi(query):
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def pasted(text, src_dir):
+    """The source with the shared header's text in place of its include
+    (the header beside the source, else the current one)."""
+    inc = f'#include "{HEADER}"'
+    if inc not in text:
+        return text
+    from humor_torch.ops import cuda_build
+
+    header = src_dir / HEADER
+    if not header.exists():
+        header = cuda_build.CSRC / HEADER
+    body = header.read_text().replace("#pragma once\n", "")
+    return text.replace(inc, body)
+
+
 def traced(text):
-    """The source with a clock mark at the start and after each barrier."""
+    """The source with a clock mark at the start and after each barrier,
+    or None where it has no grid barrier."""
     start = "cg::grid_group grid = cg::this_grid();"
     if start not in text or "grid.sync();" not in text:
-        raise ValueError("no grid.sync() to trace")
-    text = text.replace('#include "rollout_common.cuh"',
-                        '#include "rollout_common.cuh"\n' + MARK_DEFS)
+        return None
+    text = text.replace(COMMON, COMMON + "\n" + MARK_DEFS, 1)
     text = text.replace("grid.sync();", "grid.sync();\n humor_mark(mk_++);")
     text = text.replace(start,
                         start + "\n long long mk_ = 0; humor_mark(mk_++);")
@@ -123,43 +169,76 @@ def traced(text):
 
 def ticked(text):
     """The source with the slot ticks, or None where its layout differs."""
-    for anchor, _ in TICK_AT:
-        if text.count(anchor) != 1:
+    found = []
+    for anchors, after in TICK_AT:
+        anchor = next((a for a in anchors if text.count(a) == 1), None)
+        if anchor is None:
             return None
-    for anchor, after in TICK_AT:
+        found.append((anchor, after))
+    for anchor, after in found:
         text = text.replace(anchor, anchor + after)
     text = text.replace("grid.sync();",
                         "humor_tick(0);\n grid.sync();\n humor_tick(1);")
-    text = text.replace('#include "rollout_common.cuh"',
-                        '#include "rollout_common.cuh"\n' + TICK_DEFS)
+    text = text.replace(COMMON, COMMON + "\n" + TICK_DEFS, 1)
     return text + TICK_READ
 
 
-def build(src, out):
+def build(src, out, src_dir, kind):
     from humor_torch.ops import cuda_build
+    from humor_torch.ops import rollout_kernel as RK
 
     p = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas",
-                        "-v", "-I", str(cuda_build.CSRC), "-o", str(out),
-                        str(src)],
+                        "-v", "-I", str(src_dir), "-I", str(cuda_build.CSRC),
+                        "-o", str(out), str(src)],
                        capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{p.stdout}{p.stderr}")
     lib = ctypes.CDLL(str(out))
-    from humor_torch.ops import rollout_kernel as RK
-
-    fn = lib.rollout_bwd
-    fn.argtypes = ([ctypes.POINTER(RK._WeightsStruct)] + [ctypes.c_void_p] * 8
+    fn = getattr(lib, kind)
+    fn.argtypes = ([ctypes.POINTER(RK._WeightsStruct)]
+                   + [ctypes.c_void_p] * KINDS[kind]["ptrs"]
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.rollout_bwd_scratch_floats.argtypes = [ctypes.c_int]
-    lib.rollout_bwd_scratch_floats.restype = ctypes.c_longlong
     ptxas = [ln.strip() for ln in (p.stdout + p.stderr).splitlines()
-             if "rollout_bwd_kernel" in ln or "registers" in ln
+             if "entry function" in ln or "registers" in ln
              or "spill" in ln]
     return lib, ptxas
 
 
-def main():
+def scratch_floats(lib, kind, M):
+    """The source's scratch query: the forward's takes the steps since the
+    running carry of every step lives there; the earlier forward, a
+    launch a layer, named it otherwise and took M only."""
+    if kind == "rollout_bwd":
+        fn, args = lib.rollout_bwd_scratch_floats, (M,)
+    elif hasattr(lib, "rollout_fwd_scratch_floats"):
+        fn, args = lib.rollout_fwd_scratch_floats, (M, STEPS)
+    else:
+        fn, args = lib.rollout_scratch_floats, (M,)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_longlong
+    return fn(*args)
+
+
+def kernel_us_a_step(call):
+    """Device microseconds a step of each kernel one call enqueues."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    per = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per[re.sub(r"\(.*", "", e.name)[:60]] += (
+                e.time_range.elapsed_us() / STEPS)
+    return dict(per)
+
+
+def main(kind="rollout_bwd"):
     import torch
 
     import chip_smoke as CS
@@ -167,8 +246,9 @@ def main():
     from humor_torch.ops import rollout_kernel as RK
 
     if not torch.cuda.is_available():
-        sys.exit("rollout_bwd_study: no CUDA device")
-    out_dir = ROOT / "build" / "rollout_bwd_study"
+        sys.exit(f"{kind} study: no CUDA device")
+    spec = KINDS[kind]
+    out_dir = ROOT / "build" / "rollout_study"
     out_dir.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
     params = H.init_params(H.HumorConfig(), torch.Generator().manual_seed(1))
@@ -176,20 +256,28 @@ def main():
     inputs = {}
     for M in ROWS:
         carry0, z, t2j, dout = CS.rollout_inputs(M, STEPS, seed=M)
-        _, saved = RK.rollout_forward(w, carry0, z, t2j)
-        inputs[M] = (saved, z, t2j, dout)
+        if kind == "rollout_bwd":
+            _, saved = RK.rollout_forward(w, carry0, z, t2j)
+            inputs[M] = (saved, z, t2j, dout)
+        else:
+            inputs[M] = (carry0, z, t2j)
 
     def run(lib, M):
-        saved, z, t2j, dout = inputs[M]
-        out = (torch.empty(M, RK.CW, device=dev), torch.empty_like(z),
-               torch.empty_like(t2j))
-        scratch = torch.empty(lib.rollout_bwd_scratch_floats(M), device=dev)
-        rc = lib.rollout_bwd(ctypes.byref(w.struct()), saved.data_ptr(),
-                             z.data_ptr(), t2j.data_ptr(), dout.data_ptr(),
-                             *(o.data_ptr() for o in out), scratch.data_ptr(),
-                             M, STEPS, torch.cuda.current_stream().cuda_stream)
+        if kind == "rollout_bwd":
+            saved, z, t2j, _ = inputs[M]
+            out = (torch.empty(M, RK.CW, device=dev), torch.empty_like(z),
+                   torch.empty_like(t2j))
+        else:
+            carry0, z, t2j = inputs[M]
+            out = (torch.empty(STEPS, M, RK.OUT_W, device=dev),
+                   torch.empty(STEPS, M, RK.CW, device=dev))
+        scratch = torch.empty(scratch_floats(lib, kind, M), device=dev)
+        rc = getattr(lib, kind)(
+            ctypes.byref(w.struct()), *(t.data_ptr() for t in inputs[M]),
+            *(o.data_ptr() for o in out), scratch.data_ptr(), M, STEPS,
+            torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"rollout_bwd launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{kind} launch failed: CUDA error {rc}")
         return out
 
     libs, found = [], []
@@ -198,23 +286,25 @@ def main():
         # each copy in a namespace of its own, so that no two libraries
         # share a C++ symbol (a function-local static of an inline
         # function is one object per process otherwise)
-        text = f"#define humor humor_study{k}\n" + src.read_text()
-        copies = {}
-        for kind, body in (("", text), ("_traced", traced(text))):
-            copies[kind] = out_dir / f"bwd{k}{kind}.cu"
-            copies[kind].write_text(body)
-        lib, ptxas = build(copies[""], out_dir / f"libbwd{k}.so")
-        tlib, _ = build(copies["_traced"], out_dir / f"libbwd{k}_traced.so")
-        body = ticked(text)
-        plib = None
-        if body is not None:
-            copies["_ticked"] = out_dir / f"bwd{k}_ticked.cu"
-            copies["_ticked"].write_text(body)
-            plib, _ = build(copies["_ticked"],
-                            out_dir / f"libbwd{k}_ticked.so")
+        text = pasted(f"#define humor humor_study{k}\n" + src.read_text(),
+                      src.parent)
+        made = {}
+        for kind_of, body in (("", text), ("_traced", traced(text)),
+                              ("_ticked", ticked(text))):
+            if body is None:
+                made[kind_of] = None
+                continue
+            copy = out_dir / f"{kind}{k}{kind_of}.cu"
+            copy.write_text(body)
+            made[kind_of] = build(copy, out_dir / f"lib{kind}{k}{kind_of}.so",
+                                  src.parent, kind)
+        lib, ptxas = made[""]
+        tlib = made["_traced"] and made["_traced"][0]
+        plib = made["_ticked"] and made["_ticked"][0]
+        if tlib is not None:
+            tlib.humor_read_marks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        if plib is not None:
             plib.humor_read_slots.argtypes = [ctypes.c_void_p]
-        tlib.humor_read_marks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        lib.rollout_bwd_barriers_per_step.restype = ctypes.c_int
         libs.append((lib, tlib, plib))
         found.append({"source": str(src.relative_to(ROOT)), "ptxas": ptxas,
                       "ms": {}, "phases": {}})
@@ -228,7 +318,17 @@ def main():
             got = run(lib, M)
             found[k].setdefault("equal_to_first", {})[f"M={M}"] = all(
                 bool(torch.equal(a, b)) for a, b in zip(got, ref))
-            names = PHASE_NAMES[lib.rollout_bwd_barriers_per_step()]
+            # each output's largest difference over its largest magnitude
+            found[k].setdefault("max_scaled_to_first", {})[f"M={M}"] = max(
+                ((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(got, ref))
+            ms = min(found[k]["ms"][f"M={M}"])
+            if tlib is None:
+                found[k].setdefault("kernels_us_a_step", {})[f"M={M}"] = (
+                    kernel_us_a_step(lambda: run(lib, M)))
+                continue
+            per_step = getattr(lib, kind + "_barriers_per_step")()
+            names = spec["phases"][per_step]
             torch.cuda.synchronize()
             if tlib.humor_clear_marks() != 0:
                 raise RuntimeError("clearing the marks failed")
@@ -242,14 +342,12 @@ def main():
             used = next(i for i in range(1, n) if marks[i] == 0)
             cyc = [marks[i + 1] - marks[i] for i in range(used - 1)]
             # a set-up phase before the steps (loading the weights), and
-            # whole steps only (a pipelined source ends with 5 more phases)
-            lead = len(cyc) - len(names) * STEPS - (
-                STAGES if len(names) == 6 else 0)
+            # whole steps only
+            lead = len(cyc) - len(names) * STEPS - spec["trailing"][per_step]
             setup = sum(cyc[:lead])
             cyc = cyc[lead:lead + len(names) * STEPS]
             per = [sum(cyc[i::len(names)]) / STEPS for i in range(len(names))]
             total = sum(per)
-            ms = min(found[k]["ms"][f"M={M}"])
             found[k]["barriers"] = used - 1
             found[k].setdefault("setup_us", {})[f"M={M}"] = (
                 1e3 * ms * setup / (marks[used - 1] - marks[0]))
@@ -259,11 +357,11 @@ def main():
                     raise RuntimeError("clearing the slots failed")
                 run(plib, M)
                 torch.cuda.synchronize()
-                slots = (ctypes.c_longlong * 8192)()
+                slots = (ctypes.c_longlong * 16384)()
                 if plib.humor_read_slots(ctypes.addressof(slots)) != 0:
                     raise RuntimeError("reading the slots failed")
-                grid = lib.rollout_bwd_grid_blocks()
-                per_block = [[slots[8 * b + i] for i in range(len(SLOTS))]
+                grid = getattr(lib, kind + "_grid_blocks")()
+                per_block = [[slots[16 * b + i] for i in range(len(SLOTS))]
                              for b in range(grid)]
                 us_cycle = 1e3 * ms / (marks[used - 1] - marks[0])
                 found[k].setdefault("slots_us_a_step", {})[f"M={M}"] = {

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions: the fused
 rollout (humor_torch/ops/rollout_kernel.py) at full width, M=3 rows, T=6
-steps, the backward also at the edge sizes of chip_smoke.py (rows off and
-on its tiles, 1, 2 and 6 steps), twice on the same inputs (bit-identical)
-and as one device kernel a call; and the nearest neighbour
+steps, both kernels also at the edge sizes of chip_smoke.py (rows off and
+on their tiles, 1, 2 and 6 steps), twice on the same inputs
+(bit-identical) and as one device kernel a call; and the nearest neighbour
 (humor_torch/ops/chamfer.py) at sizes off and on the edges of its chunks,
 tiles and blocks.
 The kernels have no CPU mode, so these tests skip without a GPU; this
@@ -86,10 +86,27 @@ def cuda_weights():
                              torch.device("cuda"))
 
 
+EDGE_SIZES = [(m, t) for m in chip_smoke.EDGE_M for t in chip_smoke.EDGE_T]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [(m, t) for m in chip_smoke.BWD_EDGE_M
-                                  for t in chip_smoke.BWD_EDGE_T],
-                         ids=lambda s: "M%d-T%d" % s)
+@pytest.mark.parametrize("size", EDGE_SIZES, ids=lambda s: "M%d-T%d" % s)
+def test_forward_kernel_edge_sizes(cuda_weights, size):
+    """The forward kernel against the plain forward at M rows and T steps,
+    out and the saved carries within 1e-4 abs + 1e-4 rel as at M=3."""
+    M, steps = size
+    carry0, z, t2j, _ = chip_smoke.rollout_inputs(M, steps,
+                                                  seed=200 + M + steps)
+    out_k, saved_k = RK.rollout_forward(cuda_weights, carry0, z, t2j)
+    out_p, saved_p = RK.rollout_forward_plain(cuda_weights, carry0, z, t2j)
+    np.testing.assert_allclose(out_k.cpu().numpy(), out_p.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(saved_k.cpu().numpy(), saved_p.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", EDGE_SIZES, ids=lambda s: "M%d-T%d" % s)
 def test_backward_kernel_edge_sizes(cuda_weights, size):
     """The backward kernel against the plain VJP at M rows and T steps:
     every row within 1e-4 max-scaled as at M=3, but for rows at a float32
@@ -112,6 +129,16 @@ def test_backward_kernel_edge_sizes(cuda_weights, size):
 
 
 @pytest.mark.cuda
+def test_forward_kernel_is_deterministic(cuda_inputs):
+    """Two forward calls on the same inputs give bit-identical outputs."""
+    w, (carry0, z, t2j, _) = cuda_inputs
+    f1 = RK.rollout_forward(w, carry0, z, t2j)
+    f2 = RK.rollout_forward(w, carry0, z, t2j)
+    for a, b in zip(f1, f2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_backward_kernel_is_deterministic(cuda_inputs):
     """Two calls on the same inputs give bit-identical outputs: the split-K
     partials are summed in a fixed order, with no float atomics."""
@@ -123,22 +150,38 @@ def test_backward_kernel_is_deterministic(cuda_inputs):
         assert torch.equal(a, b)
 
 
+def _device_kernels(fn):
+    """Names of the device kernels one call of fn enqueues (after a warm-up
+    call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_forward_kernel_is_one_launch(cuda_inputs):
+    """A forward call enqueues exactly one device kernel (carry0 is copied
+    into the saved carries in the kernel, not by a memcpy): the persistent
+    cooperative launch."""
+    w, (carry0, z, t2j, _) = cuda_inputs
+    names = _device_kernels(lambda: RK.rollout_forward(w, carry0, z, t2j))
+    assert len(names) == 1 and "rollout_fwd_kernel" in names[0], names
+
+
 @pytest.mark.cuda
 def test_backward_kernel_is_one_launch(cuda_inputs):
     """A backward call enqueues exactly one device kernel (no memset, no
     copy): the persistent cooperative launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     w, (carry0, z, t2j, dout) = cuda_inputs
     _, saved = RK.rollout_forward_plain(w, carry0, z, t2j)
-    RK.rollout_backward(w, saved, z, t2j, dout)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        RK.rollout_backward(w, saved, z, t2j, dout)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    names = _device_kernels(
+        lambda: RK.rollout_backward(w, saved, z, t2j, dout))
     assert len(names) == 1 and "rollout_bwd_kernel" in names[0], names
 
 

@@ -8,7 +8,7 @@ the tail, and B0-B4 (prior layer 4-i and decoder layer 3-i transposed),
 with F_k of step t run beside B_k of step t + 1, on buffers kept as the
 kernel keeps them (the pre-GroupNorm h in two copies by step parity, the
 carry cotangent's tail part likewise). Every product is split over K in
-slices of the kernel's tile size (TK, read from the source), the z
+slices of the kernels' tile size (TK, read from the source), the z
 columns a slice of their own, and the transposed products read rows of w
 (no transposed copy); a product's output is finished from its partials
 summed in slice order, in column tiles of TK that cover whole GroupNorm
@@ -32,7 +32,8 @@ from humor_torch.ops.mlp import GN_EPS, GN_GROUPS
 
 torch.set_num_threads(2)
 
-SRC = Path(RK.__file__).resolve().parents[1] / "csrc" / "rollout_bwd.cu"
+SRC = (Path(RK.__file__).resolve().parents[1] / "csrc"
+       / "rollout_persistent.cuh")
 KS = int(re.search(r"constexpr int TK = (\d+);", SRC.read_text()).group(1))
 T = 3
 
