@@ -1,15 +1,21 @@
 """Fitting energies of the 3-stage TTO (port of
 humor_tpu/fitting/energies.py): the joints3d, keypoint-vertex, point-cloud,
-2D-keypoint and floor terms, the priors, and the stage objectives over
-them. Not ported: the overlap-consistency terms.
+2D-keypoint and floor terms, the priors, the overlap-consistency terms of
+a video's windows, and the stage objectives over them.
 
-Every term returns one value per window (B,), summed over everything
-else; a stage objective is the weighted sum of its terms, still (B,).
-The optimizer sums windows, and folds line-search candidates into the
-window batch, which is exact because no ported term couples windows (the
-point-cloud term's robust scale is per window, as in JAX). Missing
+Every term returns one value per row, summed over everything else; a
+stage objective is the weighted sum of its terms, still one per row. The
+optimizer sums rows, and folds its K line-search candidates into the
+window batch: the rows are K candidates x B windows, candidate-major.
+The per-window terms need nothing more (the point-cloud term's robust
+scale is per window, as in JAX). The overlap terms couple windows, so
+they reshape the rows to (K, B) with the untiled (B, 2) `seq_interval`,
+compare window b with window b + 1 of the same candidate only, and
+charge the pair to row b (the cross-batch terms to row 0): each
+candidate's row sum is JAX's scalar for that candidate. Missing
 observations carry an inf sentinel and are masked with `torch.where`,
-never by multiplying (0 * inf is NaN, in the gradient too).
+never by multiplying (0 * inf is NaN, in the gradient too); the overlap
+masks multiply, as JAX's do, because predictions are finite.
 """
 
 from __future__ import annotations
@@ -34,6 +40,10 @@ CONTACT_HEIGHT_THRESH = 0.08
 # metadata and passes through unsliced whatever its shape.
 TIME_INDEXED_OBS_KEYS = frozenset(
     {"joints3d", "verts3d", "points3d", "joints2d"})
+# Observations of the window batch as a whole: the (B, 2) frame intervals
+# and the previous batch's last window. The optimizer does not tile them
+# over line-search candidates.
+BATCH_OBS_KEYS = frozenset({"seq_interval", "prev_batch_overlap_res"})
 
 
 @dataclass(frozen=True)
@@ -55,6 +65,7 @@ class StageWeights:
     contact_vel: float = 0.0
     contact_height: float = 0.0
     floor_reg: float = 0.0
+    rgb_overlap_consist: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -215,6 +226,140 @@ def contact_height_loss(contacts_conf: torch.Tensor, joints3d: torch.Tensor
     return _per_window(floor_diff * contacts_conf)
 
 
+# ---------------------------------------------------------------------------
+# Overlap consistency of a video's windows
+# ---------------------------------------------------------------------------
+
+def _candidates(x: torch.Tensor, num_windows: int) -> torch.Tensor:
+    """(K*B, ...) rows, candidate-major -> (K, B, ...)."""
+    rows = x.shape[0]
+    if rows % num_windows:
+        raise ValueError(f"{rows} rows are no multiple of {num_windows} "
+                         "windows")
+    return x.reshape(rows // num_windows, num_windows, *x.shape[1:])
+
+
+def _charge_pairs(pair_loss: torch.Tensor) -> torch.Tensor:
+    """(K, B-1) losses of the pairs (b, b+1) -> (K*B,), pair b on row b."""
+    return torch.cat([pair_loss, torch.zeros_like(pair_loss[:, :1])],
+                     dim=1).reshape(-1)
+
+
+def _charge_first(loss: torch.Tensor, num_windows: int) -> torch.Tensor:
+    """(K,) losses of each candidate's window 0 -> (K*B,) on row 0."""
+    rest = loss.new_zeros(loss.shape[0], num_windows - 1)
+    return torch.cat([loss[:, None], rest], dim=1).reshape(-1)
+
+
+def _time_mask(valid: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(..., T) booleans -> 0/1 of `like`'s dtype, broadcast over the
+    trailing dims of `like` (..., T, ...)."""
+    extra = like.dim() - valid.dim()
+    return valid.to(like.dtype).reshape(*valid.shape, *([1] * extra))
+
+
+def _sum_after(x: torch.Tensor, lead: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:lead], -1).sum(dim=-1)
+
+
+def _masked_overlap_l2(prev_seq: torch.Tensor, cur_seq: torch.Tensor,
+                       overlap: torch.Tensor, with_vel: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum-of-squares agreement between the last `overlap` frames of
+    prev_seq and the first `overlap` frames of cur_seq, both (..., T, ...)
+    with `overlap` (...) as a tensor of the leading dims. Frame i of the
+    current window is aligned with frame (i - overlap) mod T of the
+    previous one (JAX's roll, one per pair, never across pairs) and kept
+    for i < overlap; velocities likewise with overlap - 1. Returns the
+    position and velocity sums over (...)."""
+    lead = overlap.dim()
+    T = prev_seq.shape[lead]
+    tail = prev_seq.shape[lead + 1:]
+
+    def aligned(seq, shift, n):
+        t = torch.arange(n, device=seq.device)
+        idx = torch.remainder(t - shift[..., None], n)       # (..., n)
+        idx = idx.reshape(*idx.shape, *([1] * len(tail))).expand(
+            *idx.shape, *tail)
+        return torch.gather(seq, lead, idx)
+
+    t = torch.arange(T, device=prev_seq.device)
+    m = _time_mask(t < overlap[..., None], prev_seq)
+    d = (aligned(prev_seq, overlap, T) - cur_seq) * m
+    pos = 0.5 * _sum_after(d * d, lead)
+    vel = torch.zeros_like(pos)
+    if with_vel and T > 1:
+        dprev = prev_seq.narrow(lead, 1, T - 1) \
+            - prev_seq.narrow(lead, 0, T - 1)
+        dcur = cur_seq.narrow(lead, 1, T - 1) - cur_seq.narrow(lead, 0, T - 1)
+        mv = _time_mask(t[:-1] < overlap[..., None] - 1, dprev)
+        dv = (aligned(dprev, overlap - 1, T - 1) - dcur) * mv
+        vel = 0.5 * _sum_after(dv * dv, lead)
+    return pos, vel
+
+
+def overlap_consist_loss(verts3d: torch.Tensor, seq_interval: torch.Tensor
+                         ) -> torch.Tensor:
+    """Within-batch agreement of consecutive windows: position and
+    velocity of the predicted keypoint vertices (K*B, T, V, 3) over the
+    frames two windows share, from the untiled (B, 2) [start, end)
+    intervals. Returns (K*B,), the pair (b, b+1) of each candidate on its
+    row b."""
+    B = seq_interval.shape[0]
+    if B < 2:
+        return verts3d.new_zeros(verts3d.shape[0])
+    v = _candidates(verts3d, B)
+    overlaps = (seq_interval[:-1, 1] - seq_interval[1:, 0]).long().expand(
+        v.shape[0], B - 1)
+    pos, vel = _masked_overlap_l2(v[:, :-1], v[:, 1:], overlaps,
+                                  with_vel=True)
+    return _charge_pairs(pos + vel)
+
+
+def xbatch_overlap_loss(verts3d_first: torch.Tensor,
+                        prev_verts3d: torch.Tensor, overlap: torch.Tensor
+                        ) -> torch.Tensor:
+    """Cross-batch version: each candidate's window 0 (K, T, V, 3) against
+    the previous batch's cached last window (Tp, V, 3), which may be
+    shorter than the overlap (a stage-3 sub-window). Frame i of window 0
+    is frame Tp - overlap + i of the previous window, kept where that is
+    in range: i < min(overlap, T) and i >= overlap - Tp. Returns (K,)."""
+    Tp, T = prev_verts3d.shape[0], verts3d_first.shape[1]
+    dev = verts3d_first.device
+    overlap = torch.as_tensor(overlap, device=dev).long()
+    t = torch.arange(T, device=dev)
+    ov = torch.clamp(overlap, max=T)
+    idx = torch.clamp(Tp - overlap + t, 0, Tp - 1)
+    aligned_prev = prev_verts3d[idx][None]                      # (1, T, ..)
+    valid = ((t < ov) & (t >= overlap - Tp))[None]
+    d = (aligned_prev - verts3d_first) * _time_mask(valid, aligned_prev)
+    loss = 0.5 * _sum_after(d * d, 1)
+    if T > 1:
+        dprev = aligned_prev[:, 1:] - aligned_prev[:, :-1]
+        dcur = verts3d_first[:, 1:] - verts3d_first[:, :-1]
+        mv = ((t[:-1] < ov - 1) & (t[:-1] >= overlap - Tp))[None]
+        dv = (dprev - dcur) * _time_mask(mv, dprev)
+        loss = loss + 0.5 * _sum_after(dv * dv, 1)
+    return loss
+
+
+def neighbour_l2_loss(x: torch.Tensor, num_windows: int) -> torch.Tensor:
+    """0.5 * ||x[b] - x[b+1]||^2 of consecutive windows' per-window
+    quantities (betas, floor plane), (K*B, ...) -> (K*B,) on row b."""
+    if num_windows < 2:
+        return x.new_zeros(x.shape[0])
+    c = _candidates(x, num_windows)
+    d = c[:, :-1] - c[:, 1:]
+    return _charge_pairs(0.5 * _sum_after(d * d, 2))
+
+
+def xbatch_l2_loss(x: torch.Tensor, prev: torch.Tensor, num_windows: int
+                   ) -> torch.Tensor:
+    """0.5 * ||x[0] - prev||^2 of each candidate's window 0, on row 0."""
+    d = _candidates(x, num_windows)[:, 0] - prev
+    return _charge_first(0.5 * _sum_after(d * d, 1), num_windows)
+
+
 def root_fit(cfg: EnergyConfig, w: StageWeights,
              observed: Dict[str, torch.Tensor],
              pred: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -236,6 +381,18 @@ def root_fit(cfg: EnergyConfig, w: StageWeights,
             cfg, observed["joints2d"], pred["joints3d"],
             pred["joints3d_extra"], observed["cam_f"],
             observed["cam_center"])
+    if (w.rgb_overlap_consist > 0 and "seq_interval" in observed
+            and "verts3d" in pred):
+        iv = observed["seq_interval"]
+        loss = loss + w.rgb_overlap_consist * overlap_consist_loss(
+            pred["verts3d"], iv)
+        if "prev_batch_overlap_res" in observed:
+            prev = observed["prev_batch_overlap_res"]
+            first = _candidates(pred["verts3d"], iv.shape[0])[:, 0]
+            loss = loss + w.rgb_overlap_consist * _charge_first(
+                xbatch_overlap_loss(first, prev["verts3d"],
+                                    prev["seq_interval"][1] - iv[0, 0]),
+                iv.shape[0])
     return loss
 
 
@@ -251,6 +408,15 @@ def smpl_fit(cfg: EnergyConfig, w: StageWeights,
     if w.joints3d_smooth > 0:
         loss = loss + w.joints3d_smooth * joints3d_smooth_loss(
             pred["joints3d"])
+    if (w.rgb_overlap_consist > 0 and "seq_interval" in observed
+            and "betas" in pred):
+        nb = observed["seq_interval"].shape[0]
+        loss = loss + w.rgb_overlap_consist * neighbour_l2_loss(
+            pred["betas"], nb)
+        if "prev_batch_overlap_res" in observed:
+            loss = loss + w.rgb_overlap_consist * xbatch_l2_loss(
+                pred["betas"], observed["prev_batch_overlap_res"]["betas"],
+                nb)
     return loss
 
 
@@ -294,4 +460,13 @@ def motion_fit(cfg: EnergyConfig, w: StageWeights,
             and "floor_plane" in observed):
         loss = loss + w.floor_reg * nsteps * floor_reg_loss(
             cam_pred["floor_plane"], observed["floor_plane"])
+    if (w.rgb_overlap_consist > 0 and "seq_interval" in observed
+            and "floor_plane" in cam_pred):
+        nb = observed["seq_interval"].shape[0]
+        loss = loss + w.rgb_overlap_consist * neighbour_l2_loss(
+            cam_pred["floor_plane"], nb)
+        if "prev_batch_overlap_res" in observed:
+            fp = observed["prev_batch_overlap_res"]["floor_plane"]
+            loss = loss + w.rgb_overlap_consist * xbatch_l2_loss(
+                cam_pred["floor_plane"], fp[..., :3] * fp[..., 3:], nb)
     return loss

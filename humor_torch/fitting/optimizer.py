@@ -1,10 +1,15 @@
 """3-stage test-time motion optimizer (port of
-humor_tpu/fitting/optimizer.py): the joints3d fit and the PROX RGB-D fit
-(point cloud, 2D keypoints, floor plane).
+humor_tpu/fitting/optimizer.py): the joints3d and keypoint-vertex fits,
+the RGB video fit (2D keypoints, floor plane, overlapping windows) and
+the PROX RGB-D fit (point cloud, 2D keypoints, floor plane).
 
 Fits SMPL shape and motion to the observations by optimizing in VPoser's
 pose latent space (stages 1-2) and HuMoR's motion latent space (stage 3):
 
+  * init: a point cloud puts each frame's translation at its centroid;
+    2D keypoints without one put the depth where the mean bone length of
+    the rest body, seen at the focal length, matches the 2D one at the
+    best-visible frame;
   * stage 1: root translation/orientation only. Pose and shape are
     frozen, so the body is skinned once and each evaluation applies the
     SMPL root identity p = R (base - j0) + j0 + trans to every skinned
@@ -14,17 +19,23 @@ pose latent space (stages 1-2) and HuMoR's motion latent space (stage 3):
   * stage 3: the initial state, the latent motion and the floor plane;
     every evaluation rolls the frozen HuMoR CVAE out over the window
     through the fused rollout kernels (ops/rollout_kernel.py), in three
-    sub-phases (tune the initial state on the first frames, freeze it,
-    refine all). With `optim_floor` the rollout runs in the prior frame
-    that the floor and the first frame define (cam2prior), and the
-    camera-frame prediction is an exact rigid map of the prior-frame one.
+    sub-phases (tune the initial state on the first frames without the
+    overlap terms, freeze it, refine all). With `optim_floor` the rollout
+    runs in the prior frame that the floor and the first frame define
+    (cam2prior), and the camera-frame prediction is an exact rigid map of
+    the prior-frame one.
 
-A point-cloud observation ("points3d") makes every evaluation skin the
-whole mesh and search nearest neighbours (ops/chamfer.py, a CUDA kernel
-on the card). Each L-BFGS line search evaluates its K candidate steps as
-one batch of K*B windows (see fitting/lbfgs.py); the rollout kernel then
-sees M = K*B rows. Not ported yet: the overlap-consistency terms, the
-depth init from 2D bone lengths (a 2D fit without a point cloud), the
+A video's windows ("seq_interval", (B, 2) frame intervals) are fitted
+together: the overlap-consistency terms tie each window's keypoint
+vertices, shape and floor to its neighbour's, and to the previous
+batch's last window ("prev_batch_overlap_res"). A point-cloud
+observation ("points3d") makes every evaluation skin the whole mesh and
+search nearest neighbours (ops/chamfer.py, a CUDA kernel on the card).
+Each L-BFGS line search evaluates its K candidate steps as one batch of
+K*B windows (see fitting/lbfgs.py); the rollout kernel then sees M = K*B
+rows. The per-window observations are tiled to K*B rows; seq_interval
+and the previous batch's result are not, and the overlap terms
+(fitting/energies.py) reshape their rows to (K, B). Not ported yet: the
 zoom/hybrid searches, convergence early exit, multi-device sharding.
 """
 
@@ -132,17 +143,20 @@ def _keypt_ids(body: smpl_lib.SmplModel) -> np.ndarray:
 def verts_mode_for(observed) -> str:
     """The cheapest vertex set the energies read, by observed keys: 'full'
     (a point cloud needs the whole mesh), 'keypt' (the 43 keypoint
-    vertices), 'none' (joints only)."""
+    vertices: their data term or the overlap consistency), 'none'
+    (joints only)."""
     if "points3d" in observed:
         return "full"
-    if "verts3d" in observed:
+    if "verts3d" in observed or "seq_interval" in observed:
         return "keypt"
     return "none"
 
 
-def batch_size_of(observed: Dict[str, torch.Tensor]) -> int:
-    """Window-batch size: every observation has the windows first."""
-    return next(iter(observed.values())).shape[0]
+def batch_size_of(observed: Dict[str, Any]) -> int:
+    """Window-batch size: the leading dimension of the per-window
+    observations (all but E.BATCH_OBS_KEYS)."""
+    return next(v for k, v in observed.items()
+                if k not in E.BATCH_OBS_KEYS).shape[0]
 
 
 def smpl_results(body: smpl_lib.SmplModel, trans: torch.Tensor,
@@ -337,13 +351,47 @@ def init_variables(cfg: TTOConfig, models: TTOModels, batch_size: int,
         variables["trans"] = torch.where(vis, pts, torch.zeros_like(
             pts)).sum(dim=2) / cnt
     elif "joints2d" in observed and "cam_f" in observed:
-        raise NotImplementedError(
-            "a 2D-keypoint fit without a point cloud needs the depth init "
-            "from bone lengths, which humor_torch does not port yet")
+        variables["trans"] = _init_z_from_bones(cfg, models, variables,
+                                                observed)
     return variables
 
 
-def slice_observations(observed: Dict[str, torch.Tensor], nsteps: int):
+def _init_z_from_bones(cfg: TTOConfig, models: TTOModels, variables,
+                       observed) -> torch.Tensor:
+    """The translation with its depth from the ratio of mean bone lengths
+    over C.OP_EDGE_LIST: the rest body's 3D bones at frame 0 against the
+    observed 2D ones at each window's best-visible frame (the first of
+    those with the most confident keypoints), times the focal length."""
+    with torch.no_grad():
+        pose = vp.latent2pose(models.vposer_cfg, models.vposer,
+                              variables["latent_pose"])
+        pred = smpl_results(models.body, variables["trans"],
+                            variables["root_orient"], pose,
+                            variables["betas"])
+        full = torch.cat([pred["joints3d"], pred["joints3d_extra"]], dim=2)
+        op3d = full[:, :, torch.as_tensor(cfg.energy.smpl2op_map,
+                                          device=full.device)]
+        obs2d = observed["joints2d"][..., :2]
+        conf2d = observed["joints2d"][..., 2]
+        best_t = (conf2d > 0.0).sum(dim=2).argmax(dim=1)          # (B,)
+        edges = torch.as_tensor(np.asarray(C.OP_EDGE_LIST),
+                                device=full.device)
+        b3d = torch.linalg.vector_norm(
+            op3d[:, 0, edges[:, 0]] - op3d[:, 0, edges[:, 1]], dim=-1)
+        rows = torch.arange(obs2d.shape[0], device=obs2d.device)
+        best2d, best_c = obs2d[rows, best_t], conf2d[rows, best_t]
+        b2d = torch.linalg.vector_norm(
+            best2d[:, edges[:, 0]] - best2d[:, edges[:, 1]], dim=-1)
+        c2d = torch.minimum(best_c[:, edges[:, 0]], best_c[:, edges[:, 1]])
+        mean_b2d = (b2d * (c2d > 0.0)).mean(dim=1)
+        init_z = observed["cam_f"][:, 0] * (
+            b3d.mean(dim=1) / torch.clamp(mean_b2d, min=1e-6))
+        trans = variables["trans"].clone()
+        trans[..., 2] = init_z[:, None]
+    return trans
+
+
+def slice_observations(observed: Dict[str, Any], nsteps: int):
     return {k: (v[:, :nsteps] if k in E.TIME_INDEXED_OBS_KEYS else v)
             for k, v in observed.items()}
 
@@ -351,6 +399,14 @@ def slice_observations(observed: Dict[str, torch.Tensor], nsteps: int):
 def _tile(x: torch.Tensor, K: int) -> torch.Tensor:
     """(B, ...) -> (K*B, ...), candidate-major."""
     return x.repeat(K, *([1] * (x.dim() - 1)))
+
+
+def tile_observations(observed: Dict[str, Any], K: int) -> Dict[str, Any]:
+    """The observations as an objective sees them for K line-search
+    candidates folded into K*B rows: the per-window ones tiled, the
+    batch's own (E.BATCH_OBS_KEYS) untiled."""
+    return {k: v if k in E.BATCH_OBS_KEYS else _tile(v, K)
+            for k, v in observed.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -518,8 +574,10 @@ def stage3_objective(fm: FitModels, weights3: E.StageWeights, nsteps: int,
 
 def stage3_phases(cfg: TTOConfig):
     """(weights, nsteps, init-motion scale, iterations, trainable) of the
-    stage-3 sub-phases: tune the initial state on the first frames,
-    freeze it, refine everything."""
+    stage-3 sub-phases: tune the initial state on the first frames
+    (without the overlap terms: the sub-window holds no window's last
+    frames, which they pair with the next window's first), freeze it,
+    refine everything."""
     T = cfg.seq_len
     w3 = cfg.stage_weights[2]
     iters = cfg.num_iters[2]
@@ -533,7 +591,8 @@ def stage3_phases(cfg: TTOConfig):
     wB = (replace(w3, contact_vel=0.0, contact_height=0.0)
           if cfg.stage3_contact_refine_only else w3)
     scale = float(T) / n_init
-    return ((w3, n_init, 1.0, f0, lambda k: True),
+    wA = replace(w3, rgb_overlap_consist=0.0)
+    return ((wA, n_init, 1.0, f0, lambda k: True),
             (wB, T, scale, f1 - f0, lambda k: k not in freeze),
             (w3, T, scale, iters - f1, lambda k: True))
 
@@ -544,18 +603,26 @@ def stage3_phases(cfg: TTOConfig):
 
 def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
     """A reusable fit `run(observed) -> TTOResult` on `device` (the GPU
-    unless the caller asks for the CPU). `observed` holds either
-    "joints3d" (B, T, 22, 3), inf where a joint is missing, or a PROX
-    RGB-D observation: "points3d" (B, T, N, 3) inf-padded, "joints2d"
-    (B, T, 25, 3) with confidences, "cam_f" and "cam_center" (B, 2) and
-    "floor_plane" (B, 4), fitted with `cfg.optim_floor`."""
+    unless the caller asks for the CPU). `observed` holds one of
+      * "joints3d" (B, T, 22, 3) or "verts3d" (B, T, 43, 3), inf where
+        a point is missing;
+      * an RGB video's windows: "joints2d" (B, T, 25, 3) with
+        confidences, "cam_f" and "cam_center" (B, 2), "floor_plane"
+        (B, 4) (fitted with `cfg.optim_floor`), "seq_interval" (B, 2)
+        [start, end) frames (data/rgb.py makes these), and optionally
+        "prev_batch_overlap_res": the previous batch's last window
+        ("verts3d" (Tp, 43, 3), "betas", "floor_plane" (4,),
+        "seq_interval" (2,));
+      * a PROX RGB-D observation: "points3d" (B, T, N, 3) inf-padded
+        with the RGB keys but seq_interval."""
     dev = resolve_device(device)
     fm = prepare_models(models, dev)
 
     def _lbfgs(loss_fn: Callable, vars_, iters, observed, trainable,
                stage):
-        """L-BFGS over a per-window `loss_fn(v, obs) -> (B,)`, the
-        line-search candidates folded into the window batch."""
+        """L-BFGS over a per-row `loss_fn(v, obs) -> (K*B,)`, the
+        line-search candidates folded into the window batch (the batch's
+        own observations, E.BATCH_OBS_KEYS, stay untiled)."""
         if iters == 0:
             return vars_, torch.zeros(0, device=dev)
         B = batch_size_of(observed)
@@ -569,7 +636,7 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
         def batched(vk):
             K = next(iter(vk.values())).shape[0]
             if K not in tiled:
-                tiled[K] = {k: _tile(v, K) for k, v in observed.items()}
+                tiled[K] = tile_observations(observed, K)
             flat = {k: v.reshape(K * B, *v.shape[2:]) for k, v in vk.items()}
             return loss_fn(flat, tiled[K]).reshape(K, B).sum(dim=1)
 
@@ -601,7 +668,7 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
                 timings[name] = now - t_last[0]
                 t_last[0] = now
 
-        observed = {k: v.to(dev) for k, v in observed.items()}
+        observed = _tree_to(observed, dev)
         B = batch_size_of(observed)
         losses, per_stage = {}, {}
         vars_ = init_variables(cfg, fm.models, B, observed, dev)

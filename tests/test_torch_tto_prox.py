@@ -152,7 +152,8 @@ def test_helpers_match_jax(models, observed):
 
 def test_init_variables_match_jax(models, observed):
     """The point-cloud translation init (mean of visible points) and the
-    floor-plane variable."""
+    floor-plane variable; without the cloud, the depth init from 2D bone
+    lengths (rtol 1e-5)."""
     jm, tm = models
     ref = JO.init_variables(CFG_J, jm, B, _j(observed))
     out = TO.init_variables(CFG_T, tm, B, _t(observed), "cpu")
@@ -160,9 +161,13 @@ def test_init_variables_match_jax(models, observed):
     for k in ref:
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
                                    rtol=1e-6, atol=1e-6, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        TO.init_variables(CFG_T, tm, B, {k: v for k, v in _t(
-            observed).items() if k != "points3d"}, "cpu")
+    no_cloud = {k: v for k, v in observed.items() if k != "points3d"}
+    ref = JO.init_variables(CFG_J, jm, B, _j(no_cloud))
+    out = TO.init_variables(CFG_T, tm, B, _t(no_cloud), "cpu")
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 def test_stage1_objective_matches(models, observed):
