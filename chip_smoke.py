@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit) on error:
      chain well-conditioned (plain float32 vs float64: 3e-4 m, backward
      1e-5 max-scaled, measured on the CPU); the step-by-step check uses
      the unscaled weights. Both rollout kernels also at every M in EDGE_M
-     x T in EDGE_T (1e-4), twice on the same T=59 inputs (bit-identical),
+     x T in EDGE_T and at the CLI's zoom probes' M=2, T=59 (damped), each
+     within 1e-4, twice on the same T=59 inputs (bit-identical),
      and timed at M=128 with their grids and barriers a step. The
      nearest-neighbour kernel at one
      line-search candidate's slice of the PROX fit (120 clouds x 4096
@@ -64,7 +65,20 @@ Phases, each of which fails the run (non-zero exit) on error:
      with the keypoints nudged, hold the card's first RGB_STAGE3_ITERS
      loss values to the CPU's within RGB_STAGE3_RTOL and its final
      translations' gap to the CPU within RGB_STAGE3_NUDGE_RATIO of its
-     gap to the nudged run.
+     gap to the nudged run;
+  7. drive the command-line entry points on synthetic layouts written to
+     a temporary directory: the fit CLI (humor_torch.fitting.cli) on a
+     110-frame RGB video of OpenPose JSONs (phase 6's bodies) with the
+     6890-vertex body as an SMPL+H npz, 2 windows x 60 frames, the hybrid
+     line search (a zoom polish of each stage and stage-3 phase),
+     CLI_ITERS; check the same as for phase 3, that both rollout kernels
+     were launched and the nearest neighbour not, and the 110 stitched
+     frames finite; then the fit-eval CLI (--mode 2d) on its output
+     (finite compare_mean.csv); stage 2 alone with the zoom search on the
+     card and on the CPU (the first RGB_STAGE3_ITERS history values within
+     RGB_STAGE3_RTOL); and the fit CLI with configs/fit_proxd.cfg on a
+     small PROX recording (16-bit depth and body-index PNGs, 2 windows x
+     20 frames at 3/3/3), which must launch the nearest neighbour.
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then the result line {"ok": true, "device": {...}} last. Imports nothing
@@ -309,10 +323,19 @@ def row_errors(g_k, g_p):
     return torch.stack(errs).max(0).values
 
 
-def check_bwd_edges(weights, weights64):
-    """The backward kernel at row counts off and on its 16-row tiles and
-    past 2 x 64 (M in EDGE_M) and at T in EDGE_T steps, against
-    the plain VJP: every row within 1e-4 max-scaled (the T=6 bound), but
+def edge_shapes(weights, weights64, damped_weights, damped64):
+    """(M, T, weights, float64 weights) at which phase 2 holds both
+    rollout kernels to their edge tolerances: rows off and on the 16-row
+    tiles and past 2 x 64 (M in EDGE_M) at T in EDGE_T steps, and the
+    zoom search's probes on the CLI path (M = B rows, T_ROLL steps), with
+    the decoder damped as every T_ROLL-step comparison here."""
+    return [(M, steps, weights, weights64) for M in EDGE_M
+            for steps in EDGE_T] + [(B, T_ROLL, damped_weights, damped64)]
+
+
+def check_bwd_edges(shapes):
+    """The backward kernel at each of `shapes` (edge_shapes) against the
+    plain VJP: every row within 1e-4 max-scaled (the T=6 bound), but
     for rows at a float32 ReLU tie: a ReLU input of the float64
     recompute within RELU_TIE of zero (relative to its layer's mean
     magnitude), where two float32 evaluations may take different branches
@@ -324,66 +347,62 @@ def check_bwd_edges(weights, weights64):
     from humor_torch.ops import rollout_kernel as RK
 
     found, ties = {}, {}
-    for M in EDGE_M:
-        for steps in EDGE_T:
-            carry0, z, t2j, dout = rollout_inputs(M, steps,
-                                                  seed=100 + M + steps)
-            _, saved = RK.rollout_forward_plain(weights, carry0, z, t2j)
-            g_k = RK.rollout_backward(weights, saved, z, t2j, dout)
-            g_p = RK.rollout_backward_plain(weights, saved, z, t2j, dout)
-            if not all(bool(torch.isfinite(a).all()) for a in g_k):
-                fail(f"backward kernel: non-finite output at T={steps} M={M}")
-            err = row_errors(g_k, g_p)
-            off = (err > 1e-4).nonzero().flatten()
-            key = f"M={M},T={steps}"
-            if len(off):
-                margin = RK.relu_margins(weights64, saved.double(),
-                                         z.double())[off]
-                ties[key] = {int(r): [float(e), float(m)] for r, e, m in
-                             zip(off, err[off], margin)}
-                if bool((margin >= RELU_TIE).any()):
-                    fail(f"backward kernel disagrees at T={steps} M={M} in "
-                         f"rows that are no ReLU tie: {ties[key]}")
-                err[off] = 0.0
-            found[key] = float(err.max())
+    for M, steps, weights, weights64 in shapes:
+        carry0, z, t2j, dout = rollout_inputs(M, steps, seed=100 + M + steps)
+        _, saved = RK.rollout_forward_plain(weights, carry0, z, t2j)
+        g_k = RK.rollout_backward(weights, saved, z, t2j, dout)
+        g_p = RK.rollout_backward_plain(weights, saved, z, t2j, dout)
+        if not all(bool(torch.isfinite(a).all()) for a in g_k):
+            fail(f"backward kernel: non-finite output at T={steps} M={M}")
+        err = row_errors(g_k, g_p)
+        off = (err > 1e-4).nonzero().flatten()
+        key = f"M={M},T={steps}"
+        if len(off):
+            margin = RK.relu_margins(weights64, saved.double(),
+                                     z.double())[off]
+            ties[key] = {int(r): [float(e), float(m)] for r, e, m in
+                         zip(off, err[off], margin)}
+            if bool((margin >= RELU_TIE).any()):
+                fail(f"backward kernel disagrees at T={steps} M={M} in "
+                     f"rows that are no ReLU tie: {ties[key]}")
+            err[off] = 0.0
+        found[key] = float(err.max())
     print("[bwd edges] " + json.dumps({"max_scaled": found,
                                        "tie_rows_err_margin": ties}))
     return max(found.values())
 
 
-def check_fwd_edges(weights):
-    """The forward kernel at row counts off and on its 16-row tiles and
-    past 2 x 64 (M in EDGE_M) and at T in EDGE_T steps, against the plain
-    forward: out and the saved carries within 1e-4 + 1e-4 |plain| (the
-    T=6 bound of tests/test_torch_cuda_kernels.py). Returns the largest
-    abs error of out without the prior variance (exp of a head output,
-    compared relatively) and of saved."""
+def check_fwd_edges(shapes):
+    """The forward kernel at each of `shapes` (edge_shapes) against the
+    plain forward: out and the saved carries within 1e-4 + 1e-4 |plain|
+    (the T=6 bound of tests/test_torch_cuda_kernels.py). Returns the
+    largest abs error of out without the prior variance (exp of a head
+    output, compared relatively) and of saved."""
     import torch
 
     from humor_torch.ops import rollout_kernel as RK
 
     found = {}
-    for M in EDGE_M:
-        for steps in EDGE_T:
-            carry0, z, t2j, _ = rollout_inputs(M, steps, seed=200 + M + steps)
-            out_k, saved_k = RK.rollout_forward(weights, carry0, z, t2j)
-            out_p, saved_p = RK.rollout_forward_plain(weights, carry0, z, t2j)
-            if not (bool(torch.isfinite(out_k).all())
-                    and bool(torch.isfinite(saved_k).all())):
-                fail(f"forward kernel: non-finite output at T={steps} M={M}")
-            over = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
-                       for a, b in ((out_k, out_p), (saved_k, saved_p)))
-            err = max((out_k[..., :PV] - out_p[..., :PV]).abs().max().item(),
-                      (saved_k - saved_p).abs().max().item())
-            pv = ((out_k[..., PV:] - out_p[..., PV:]).abs()
-                  / out_p[..., PV:].abs()).max().item()
-            found[f"M={M},T={steps}"] = [err, pv]
-            if over > 1e-4:
-                fail(f"forward kernel disagrees at T={steps} M={M}: abs "
-                     f"{err:.3e}, prior var rel {pv:.3e} (tol 1e-4 + 1e-4 "
-                     "|plain|)")
-    print("[fwd edges] " + json.dumps({"max_abs_err_and_pv_rel": found}))
-    return max(e for e, _ in found.values())
+    for M, steps, weights, _ in shapes:
+        carry0, z, t2j, _ = rollout_inputs(M, steps, seed=200 + M + steps)
+        out_k, saved_k = RK.rollout_forward(weights, carry0, z, t2j)
+        out_p, saved_p = RK.rollout_forward_plain(weights, carry0, z, t2j)
+        if not (bool(torch.isfinite(out_k).all())
+                and bool(torch.isfinite(saved_k).all())):
+            fail(f"forward kernel: non-finite output at T={steps} M={M}")
+        over = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                   for a, b in ((out_k, out_p), (saved_k, saved_p)))
+        err = max((out_k[..., :PV] - out_p[..., :PV]).abs().max().item(),
+                  (saved_k - saved_p).abs().max().item())
+        pv = ((out_k[..., PV:] - out_p[..., PV:]).abs()
+              / out_p[..., PV:].abs()).max().item()
+        found[f"M={M},T={steps}"] = [err, pv, over]
+        if over > 1e-4:
+            fail(f"forward kernel disagrees at T={steps} M={M}: abs "
+                 f"{err:.3e}, prior var rel {pv:.3e} (tol 1e-4 + 1e-4 "
+                 "|plain|)")
+    print("[fwd edges] " + json.dumps({"max_abs_err_pv_rel_over": found}))
+    return max(e for e, _, _ in found.values())
 
 
 def time_fwd(weights, M, steps):
@@ -1245,6 +1264,256 @@ def compare_rgb_stage3(models, device="cuda", iters=(0, 0, RGB_ITERS[2])):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the CLIs on synthetic video layouts
+# ---------------------------------------------------------------------------
+
+# the RGB CLI's budget: stage 3's phases 5/5/5 (freeze at 5 and 10), so
+# the hybrid search polishes each stage and each stage-3 phase with 2 zoom
+# iterations (their probes roll out at M = B rows)
+CLI_ITERS = (10, 10, 15)
+CLI_FREEZE = (5, 10)
+CLI_ZOOM_ITERS = 3             # stage 2 alone, zoom, card against CPU
+PROX_FRAMES, PROX_SEQ = 30, 20  # the PROX-RGBD CLI's recording: 2 windows
+PROX_IMG = (64, 48)            # its depth and body-index images (W, H)
+PROX_FLOOR_M = 0.6             # its floor: 0.6 m below the depth camera
+
+
+def write_keypoints(dirpath, joints2d, names=None):
+    """One OpenPose JSON a frame, <name>_keypoints.json, one person with
+    joints2d[t] (25, 3) as its pose_keypoints_2d."""
+    os.makedirs(dirpath, exist_ok=True)
+    for t, kp in enumerate(joints2d):
+        name = names[t] if names is not None else f"frame_{t:06d}"
+        with open(os.path.join(dirpath, f"{name}_keypoints.json"), "w") as f:
+            json.dump({"people": [{"pose_keypoints_2d": [
+                float(v) for v in kp.reshape(-1)]}]}, f)
+    return dirpath
+
+
+def write_intrinsics(path, cam_f=CAM_F, cam_c=CAM_C):
+    with open(path, "w") as f:
+        json.dump([[cam_f[0], 0.0, cam_c[0]], [0.0, cam_f[1], cam_c[1]],
+                   [0.0, 0.0, 1.0]], f)
+    return path
+
+
+def write_body_npz(root, body):
+    """`body` as <root>/neutral/model.npz, the AMASS SMPL+H layout that
+    body_model.smpl.load_smpl_npz (and so the CLIs' --smplh-root) reads."""
+    import numpy as np
+
+    d = os.path.join(root, "neutral")
+    os.makedirs(d, exist_ok=True)
+    V = body.num_verts
+    parents = np.asarray(body.parents, np.int64)
+    np.savez(os.path.join(d, "model.npz"),
+             v_template=body.v_template.cpu().numpy(),
+             shapedirs=body.shapedirs.cpu().numpy(),
+             posedirs=body.posedirs.cpu().numpy().T.reshape(V, 3, -1),
+             J_regressor=body.j_regressor.cpu().numpy(),
+             weights=body.lbs_weights.cpu().numpy(),
+             kintree_table=np.stack([parents, np.arange(parents.size)]),
+             f=np.asarray(body.faces))
+    return root
+
+
+def rgb_video_joints2d(models):
+    """110 frames of OpenPose joints: make_rgb_observations' window 0,
+    then window 1's last 50 frames."""
+    import numpy as np
+
+    j = make_rgb_observations(models, seed=0)["joints2d"].numpy()
+    return np.concatenate([j[0], j[1, 10:]], axis=0)
+
+
+def write_prox_recording(root, frames=PROX_FRAMES, seed=0,
+                         size=PROX_IMG):
+    """A PROX recording in the public layout: <root>/calibration/
+    {IR,Color}.json (distortion on both cameras) and <root>/recordings/
+    <rec>/{keypoints,Depth,BodyIndex}: per frame OpenPose joints near the
+    colour image's centre, a 16-bit depth PNG (depth x 8000: a wall at
+    3.5 m, a floor PROX_FLOOR_M below the depth camera in front of it, a
+    person's 16 x 32-pixel box at ~2.5 m) and an 8-bit body-index PNG (0
+    on the person, 255 elsewhere). Returns the recording's directory."""
+    import numpy as np
+    from PIL import Image
+
+    from humor_torch.data.prox import undistort_points
+
+    rng = np.random.RandomState(seed)
+    W, H = size
+    calib = os.path.join(root, "calibration")
+    rec = os.path.join(root, "recordings", "N0Sofa_00034_01")
+    for d in (calib, *(os.path.join(rec, s) for s in
+                       ("keypoints", "Depth", "BodyIndex"))):
+        os.makedirs(d, exist_ok=True)
+    cams = {
+        "IR": {"camera_mtx": [[50.0, 0.0, W / 2], [0.0, 50.0, H / 2],
+                              [0.0, 0.0, 1.0]],
+               "k": [0.05, -0.08, 0.001, -0.002, 0.01],
+               "view_mtx": [[0.999, -0.02, 0.03, 0.05],
+                            [0.02, 0.999, 0.01, -0.02],
+                            [-0.03, -0.01, 0.999, 0.01]]},
+        "Color": {"camera_mtx": [[CAM_F[0], 0.0, CAM_C[0]],
+                                 [0.0, CAM_F[1], CAM_C[1]],
+                                 [0.0, 0.0, 1.0]],
+                  "k": [0.02, -0.03, 0.0005, 0.0005, 0.0],
+                  "view_mtx": [[1.0, 0.0, 0.0, -0.05], [0.0, 1.0, 0.0, 0.0],
+                               [0.0, 0.0, 1.0, 0.0]],
+                  "R": [0.01, -0.02, 0.005], "T": [0.05, 0.0, 0.0]}}
+    for name, cam in cams.items():
+        with open(os.path.join(calib, f"{name}.json"), "w") as f:
+            json.dump(cam, f)
+    # the depth at which each pixel's ray (undistorted, as the loader
+    # reads it) meets the plane y = PROX_FLOOR_M of the depth camera
+    uv = np.stack(np.meshgrid(np.arange(W), np.arange(H)), -1).reshape(-1, 2)
+    ray_y = undistort_points(uv, np.asarray(cams["IR"]["camera_mtx"]),
+                             np.asarray(cams["IR"]["k"]))[:, 1].reshape(H, W)
+    floor_z = np.where(ray_y > 0, PROX_FLOOR_M / np.maximum(ray_y, 1e-9),
+                       np.inf)
+    base = rng.randn(25, 2) * [60.0, 150.0] + [960.0, 540.0]
+    names = [f"s001_frame_{t:05d}" for t in range(frames)]
+    kps = []
+    for t, name in enumerate(names):
+        kps.append(np.concatenate([base + rng.randn(25, 2) * 2.0 + [t, 0.0],
+                                   np.full((25, 1), 0.9)], axis=-1))
+        depth = np.minimum(3.5, floor_z) + rng.randn(H, W) * 0.005
+        mask = np.full((H, W), 255, np.uint8)
+        x0, y0 = W // 2 - 8 + t % 5, H // 2 - 16
+        depth[y0:y0 + 32, x0:x0 + 16] = 2.5 + rng.randn(32, 16) * 0.01
+        mask[y0:y0 + 32, x0:x0 + 16] = 0
+        Image.fromarray((depth * 8000.0).astype(np.uint16)).save(
+            os.path.join(rec, "Depth", name + ".png"))
+        Image.fromarray(mask).save(os.path.join(rec, "BodyIndex",
+                                                name + ".png"))
+    write_keypoints(os.path.join(rec, "keypoints"), np.stack(kps), names)
+    return rec
+
+
+def _cli_fit(argv, device):
+    """One fit CLI run counted from zero: (result, seconds, launches)."""
+    import torch
+
+    from humor_torch.fitting import cli as FC
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = FC.main(argv + ["--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_launches()
+
+
+def compare_zoom(models, device="cuda"):
+    """Stage 2 of the RGB fit alone with the zoom search (each probe one
+    evaluation at M = B rows), on the card and on the CPU: the first
+    RGB_STAGE3_ITERS history values within RGB_STAGE3_RTOL (the rule the
+    chaotic stage-3 path settled on)."""
+    import dataclasses
+
+    import torch
+
+    from humor_torch.fitting import optimizer as O
+
+    cfg = dataclasses.replace(rgb_config((0, CLI_ZOOM_ITERS, 0)),
+                              lbfgs_linesearch="zoom")
+    obs = make_rgb_observations(models, seed=0)
+    hist = {d: O.make_runner(cfg, models, device=d)(obs).losses[
+        "stage2"].cpu() for d in (device, "cpu")}
+    rel = ((hist[device] - hist["cpu"]).abs() / hist["cpu"].abs()).tolist()
+    print("[cli zoom card vs cpu] " + json.dumps(
+        {"stage2_card": hist[device].tolist(),
+         "stage2_cpu": hist["cpu"].tolist(), "rel": rel}))
+    if not (torch.isfinite(hist[device]).all()
+            and max(rel[:RGB_STAGE3_ITERS]) <= RGB_STAGE3_RTOL):
+        fail(f"the zoom search's stage 2 on the card parts from the CPU by "
+             f"{rel} (first {RGB_STAGE3_ITERS} within {RGB_STAGE3_RTOL})")
+
+
+def run_clis(models, device="cuda", iters=CLI_ITERS):
+    """Phase 7: the RGB fit CLI at full width on a 110-frame video (2
+    windows x 60 frames, the hybrid search), the fit-eval CLI on its
+    output, the zoom search card against CPU, and the PROX-RGBD fit CLI
+    on a small recording. Returns the launches of the RGB and the PROX
+    CLI runs."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from humor_torch.eval import fitting_cli as FE
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        smplh = write_body_npz(os.path.join(tmp, "smplh"), models.body)
+        video = write_keypoints(os.path.join(tmp, "video"),
+                                rgb_video_joints2d(models))
+        intr = write_intrinsics(os.path.join(tmp, "intrinsics.json"))
+        out = os.path.join(tmp, "fit_rgb")
+        res, wall, launches["rgb_cli"] = _cli_fit(
+            ["--data-path", video, "--data-type", "RGB", "--seq-len", "60",
+             "--overlap-len", "10", "--rgb-intrinsics", intr,
+             "--lbfgs-linesearch", "hybrid", "--smplh-root", smplh,
+             "--num-iters", *map(str, iters), "--num-iters-scale", "1",
+             "--stage3-freeze-start", str(CLI_FREEZE[0]),
+             "--stage3-freeze-end", str(CLI_FREEZE[1]),
+             "--out", out, "--save-stages-results"], device)
+        losses = check_result(res, iters, dict(
+            FINAL_SHAPES, floor_plane=(B, 4), prior_trans=(B, T, 3)))
+        stitched = dict(np.load(os.path.join(out, "final_results",
+                                             "stage3_results.npz")))
+        t0 = time.perf_counter()
+        FE.main(["--results", out, "--out", os.path.join(tmp, "eval"),
+                 "--stages", "final,stage2", "--mode", "2d",
+                 "--smplh-root", smplh, "--device", device])
+        eval_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "eval", "compare_mean.csv")) as f:
+            rows = list(csv.reader(f))
+        print("[cli rgb] " + json.dumps({
+            "seconds": wall, "eval_seconds": eval_s,
+            "final_losses": {k: float(v[-1]) for k, v in losses.items()},
+            "first_losses": {k: float(v[0]) for k, v in losses.items()},
+            "stitched_frames": int(stitched["trans"].shape[0]),
+            "csv_rows": len(rows) - 1, "launches": launches["rgb_cli"]}))
+        for k in ("rollout_fwd", "rollout_bwd"):
+            if launches["rgb_cli"][k] <= 0:
+                fail(f"the RGB CLI never launched {k}")
+        if launches["rgb_cli"]["nn_distance"] != 0:
+            fail("the RGB CLI launched nn_distance: it has no point cloud")
+        if stitched["trans"].shape != (110, 3) or not all(
+                np.isfinite(v).all() for v in stitched.values()):
+            fail(f"the RGB CLI stitched {stitched['trans'].shape} "
+                 "translations (want (110, 3)) or non-finite values")
+        vals = [float(v) for r in rows[1:] for v in r[1:] if v != ""]
+        if len(rows) < 2 or not vals or not np.isfinite(vals).all():
+            fail(f"the fit-eval CLI's compare_mean.csv is empty or not "
+                 f"finite: {rows}")
+
+        compare_zoom(models, device)
+
+        rec = write_prox_recording(os.path.join(tmp, "prox"))
+        res, wall, launches["prox_cli"] = _cli_fit(
+            ["@" + os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "configs", "fit_proxd.cfg"),
+             "--data-path", rec, "--seq-len", str(PROX_SEQ),
+             "--smplh-root", smplh, "--num-iters", "3", "3", "3",
+             "--num-iters-scale", "1", "--stage3-tune-init-num-frames", "5",
+             "--stage3-freeze-start", "1", "--stage3-freeze-end", "2",
+             "--out", os.path.join(tmp, "fit_prox")], device)
+        print("[cli prox] " + json.dumps({
+            "seconds": wall, "windows": int(res.final["trans"].shape[0]),
+            "final_losses": {k: float(v[-1]) for k, v in res.losses.items()},
+            "launches": launches["prox_cli"]}))
+        if launches["prox_cli"]["nn_distance"] <= 0:
+            fail("the PROX-RGBD CLI never launched nn_distance")
+        if not all(bool(torch.isfinite(v).all())
+                   for v in (*res.losses.values(), res.final["trans"])):
+            fail("the PROX-RGBD CLI's losses or translations are not finite")
+    return launches
+
+
 def run_fit(models):
     import torch
 
@@ -1322,9 +1591,12 @@ def main():
     damped_weights = RK.RolloutWeights(damped(params, 0.1), dev)
     full = check_kernels(damped_weights, M_STAGE3, T_ROLL, tol_world=5e-3,
                          tol_bwd=1e-3, timed=True)
-    fwd_edge_err = check_fwd_edges(weights)
-    bwd_edge_err = check_bwd_edges(
-        weights, RK.RolloutWeights(params, dev, dtype=torch.float64))
+    shapes = edge_shapes(
+        weights, RK.RolloutWeights(params, dev, dtype=torch.float64),
+        damped_weights, RK.RolloutWeights(damped(params, 0.1), dev,
+                                          dtype=torch.float64))
+    fwd_edge_err = check_fwd_edges(shapes)
+    bwd_edge_err = check_bwd_edges(shapes)
     fwd_design = RK.forward_design()
     fwd_ms_128 = time_fwd(damped_weights, M_MAX, T_ROLL)
     print("[timing fwd] " + json.dumps({**fwd_design, "M": M_MAX,
@@ -1336,12 +1608,14 @@ def main():
     del damped_weights
     nn_err, nn_rec = check_nn()
 
-    # 3.-5. the fits, each counted from zero
+    # 3.-6. the fits, each counted from zero
     models = make_models()
     by_path = {"joints3d_fit": run_fit(models),
                "prox_fit": run_prox_fit(models),
                "rgb_fit": run_rgb_fit(models)}
     compare_rgb_stage3(models)
+    # 7. the CLIs
+    by_path.update(run_clis(models))
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in by_path["prox_fit"]}
 

@@ -10,6 +10,7 @@
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
@@ -77,6 +78,11 @@ def _model(v_template, shapedirs, posedirs, j_regressor, weights, parents,
                      parents=np.asarray(parents, np.int32),
                      faces=np.asarray(faces, np.int32),
                      vtx_joint_ids=np.asarray(vtx_ids, np.int32))
+
+
+def find_model_path(base: str, gender: str) -> str:
+    """<base>/<gender>/model.npz, the AMASS SMPL+H layout."""
+    return os.path.join(base, gender, "model.npz")
 
 
 def load_smpl_npz(path: str, num_betas: int = C.BETA_SIZE,

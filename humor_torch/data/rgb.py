@@ -5,8 +5,9 @@ optimizes jointly, its overlap-consistency terms tying the windows
 together (fitting/optimizer.py).
 
 The window split spreads the remainder over the overlaps; the keypoint
-reader is the one the PROX and iMapper loaders share. Not ported yet: the
-person-mask read (`mask_path`), which needs a PNG decoder.
+reader is the one the PROX and iMapper loaders share. Person masks
+(`mask_path`, one PNG a frame named after its keypoint file) are read
+with PIL as 8-bit grayscale, as cv2.imread(path, 0) reads them.
 """
 
 from __future__ import annotations
@@ -66,6 +67,14 @@ def read_keypoints(path: str) -> np.ndarray:
     kp = np.asarray(people[0]["pose_keypoints_2d"],
                     np.float32).reshape(-1, 3)
     return kp[:C.OP_NUM_JOINTS]
+
+
+def read_gray_png(path: str) -> np.ndarray:
+    """An image as (H, W) uint8 grayscale (PIL's "L" conversion)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("L"))
 
 
 def flip_keypoints(kp: np.ndarray, img_width: float) -> np.ndarray:
@@ -147,10 +156,13 @@ class RGBVideoDataset:
         frames = np.stack([read_keypoints(p) for p in keyp_paths])
 
         if mask_path is not None:
-            raise NotImplementedError(
-                "person masks (mask_path) need a PNG reader, which "
-                "humor_torch does not have yet (ROADMAP A5); "
-                "mask_occluded_joints applies a decoded mask")
+            names = ["_".join(os.path.basename(p).split("_")[:-1])
+                     for p in keyp_paths]
+            for t, name in enumerate(names):
+                mp = os.path.join(mask_path, name + ".png")
+                if os.path.exists(mp):
+                    frames[t] = mask_occluded_joints(frames[t],
+                                                     read_gray_png(mp))
 
         self.num_frames = frames.shape[0]
         self.seq_len = (cfg.seq_len if cfg.seq_len > 0

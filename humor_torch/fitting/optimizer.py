@@ -35,8 +35,9 @@ Each L-BFGS line search evaluates its K candidate steps as one batch of
 K*B windows (see fitting/lbfgs.py); the rollout kernel then sees M = K*B
 rows. The per-window observations are tiled to K*B rows; seq_interval
 and the previous batch's result are not, and the overlap terms
-(fitting/energies.py) reshape their rows to (K, B). Not ported yet: the
-zoom/hybrid searches, convergence early exit, multi-device sharding.
+(fitting/energies.py) reshape their rows to (K, B); the zoom search
+evaluates one candidate at a time (M = B rows). Not ported yet:
+multi-device sharding.
 """
 
 from __future__ import annotations
@@ -77,12 +78,22 @@ class TTOConfig:
     )
     energy: E.EnergyConfig = E.EnergyConfig()
     num_iters: Tuple[int, int, int] = (30, 70, 70)
+    lbfgs_max_linesearch: int = 20  # zoom search only (probe budget)
     lbfgs_history: int = 10
     # "auto": "parallel" below 12 windows, "armijo" from 12; or one name
-    # for all stages, or a 3-tuple per stage
+    # for all stages, or a 3-tuple per stage: "parallel", "armijo",
+    # "zoom" (sequential strong-Wolfe, one K=1 evaluation a probe) or
+    # "hybrid" (parallel, then a zoom polish of lbfgs_polish_frac of the
+    # stage's iterations)
     lbfgs_linesearch: Any = "auto"
+    lbfgs_polish_frac: float = 0.08
     # line-search grid size; None/0 = clamp(128 // B, 4, 16)
     lbfgs_candidates: Optional[int] = 8
+    # convergence early exit (fitting/lbfgs.run_lbfgs); None = the fixed
+    # iteration count
+    lbfgs_tol_grad: Optional[float] = None
+    lbfgs_tol_change: Optional[float] = None
+    lbfgs_stall_patience: int = 3
     data_fps: float = 30.0
     optim_floor: bool = False
     stage3_tune_init_state: bool = True
@@ -112,6 +123,12 @@ def resolve_candidates(num: Optional[int], batch: int) -> int:
     if num:
         return num
     return max(4, min(16, 128 // max(int(batch), 1)))
+
+
+def hybrid_polish_iters(iters: int, frac: float) -> int:
+    """The hybrid search's zoom polish: the last max(2, round(iters *
+    frac)) of a stage's iterations, none in a stage of 4 or fewer."""
+    return max(2, int(round(iters * frac))) if iters > 4 else 0
 
 
 def _tree_to(tree, device):
@@ -640,11 +657,26 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
             flat = {k: v.reshape(K * B, *v.shape[2:]) for k, v in vk.items()}
             return loss_fn(flat, tiled[K]).reshape(K, B).sum(dim=1)
 
-        res = run_lbfgs(batched, vars_, iters,
-                        mask=make_mask(vars_, trainable),
-                        history_size=cfg.lbfgs_history, linesearch=ls,
-                        num_candidates=resolve_candidates(
-                            cfg.lbfgs_candidates, B))
+        def run_(linesearch, v, n):
+            return run_lbfgs(batched, v, n, mask=make_mask(vars_, trainable),
+                             history_size=cfg.lbfgs_history,
+                             linesearch=linesearch,
+                             num_candidates=resolve_candidates(
+                                 cfg.lbfgs_candidates, B),
+                             max_linesearch_steps=cfg.lbfgs_max_linesearch,
+                             tol_grad=cfg.lbfgs_tol_grad,
+                             tol_change=cfg.lbfgs_tol_change,
+                             stall_patience=cfg.lbfgs_stall_patience)
+
+        if ls == "hybrid":
+            polish = hybrid_polish_iters(iters, cfg.lbfgs_polish_frac)
+            res = run_("parallel", vars_, iters - polish)
+            if polish:
+                res2 = run_("zoom", res.params, polish)
+                res = res2._replace(loss_history=torch.cat(
+                    [res.loss_history, res2.loss_history]))
+        else:
+            res = run_(ls, vars_, iters)
         return res.params, res.loss_history
 
     def export(vars_):
@@ -724,3 +756,10 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
         return TTOResult(final=final, per_stage=per_stage, losses=losses)
 
     return run
+
+
+def run(cfg: TTOConfig, models: TTOModels, observed: Dict[str, torch.Tensor],
+        device="cuda", timings: Optional[Dict[str, float]] = None
+        ) -> TTOResult:
+    """One-shot convenience wrapper around make_runner."""
+    return make_runner(cfg, models, device=device)(observed, timings=timings)

@@ -1,0 +1,227 @@
+"""Config / flag system: argparse with `@file.cfg` argument files (port
+of humor_tpu/utils/config.py: the fit and viz CLIs' configs).
+
+Each line of an @file holds whitespace-separated tokens ("--flag value"),
+blank lines and "#" comments are skipped. A config is a dataclass whose
+fields become flags: `foo_bar` -> `--foo-bar`, a bool -> `--foo-bar` /
+`--no-foo-bar`, a tuple -> a `nargs="+"` list of its element type.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from dataclasses import dataclass, fields
+from typing import List, Optional, Sequence, Tuple, Type, TypeVar
+
+T = TypeVar("T")
+
+NSTAGES = 3
+
+class SplitLineParser(argparse.ArgumentParser):
+    """fromfile parser: each line of an @file holds whitespace-separated
+    tokens."""
+
+    def __init__(self, *a, **kw):
+        kw.setdefault("fromfile_prefix_chars", "@")
+        super().__init__(*a, **kw)
+
+    def convert_arg_line_to_args(self, arg_line: str) -> List[str]:
+        line = arg_line.strip()
+        if not line or line.startswith("#"):
+            return []
+        return line.split()
+
+
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls: Type,
+                        prefix: str = "") -> None:
+    for f in fields(cls):
+        name = f"--{prefix}{f.name.replace('_', '-')}"
+        if f.type in ("bool", bool):
+            default = (f.default if f.default is not dataclasses.MISSING
+                       else False)
+            group = parser.add_mutually_exclusive_group()
+            group.add_argument(name, dest=f.name, action="store_true",
+                               default=default)
+            group.add_argument(
+                f"--no-{prefix}{f.name.replace('_', '-')}",
+                dest=f.name, action="store_false")
+        elif (isinstance(f.default, (tuple, list))
+              or "Tuple" in str(f.type) or "List" in str(f.type)):
+            elem = float
+            if f.default is not dataclasses.MISSING and len(f.default):
+                elem = type(f.default[0])
+            parser.add_argument(name, dest=f.name, nargs="+", type=elem,
+                                default=(list(f.default)
+                                         if f.default is not dataclasses.MISSING
+                                         else None))
+        else:
+            typ = (type(f.default)
+                   if f.default is not dataclasses.MISSING
+                   and f.default is not None else str)
+            parser.add_argument(name, dest=f.name, type=typ,
+                                default=(f.default
+                                         if f.default is not dataclasses.MISSING
+                                         else None))
+
+
+def parse_into(cls: Type[T], argv: Optional[Sequence[str]] = None,
+               prog: Optional[str] = None) -> T:
+    """Parse argv (supporting @file.cfg) into a dataclass instance."""
+    parser = SplitLineParser(prog=prog, allow_abbrev=False)
+    _add_dataclass_args(parser, cls)
+    ns = parser.parse_args(argv)
+    kwargs = {}
+    for f in fields(cls):
+        v = getattr(ns, f.name)
+        if isinstance(f.default, tuple) and isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+@dataclass
+class FitCLIConfig:
+    # data
+    data_path: str = ""
+    data_type: str = "AMASS"  # AMASS | PROX-RGB | PROX-RGBD | iMapper-RGB | RGB
+    batch_size: int = 1
+    seq_len: int = 60
+    overlap_len: int = 10
+    # RGB pipeline extras
+    rgb_intrinsics: str = ""   # json [[fx,0,cx],[0,fy,cy],[0,0,1]]
+    rgb_no_split: bool = False  # whole clip as ONE window
+    mask_joints2d: bool = False
+    mask_path: str = ""        # person-mask pngs for joint occlusion
+    # PROX pseudo-GT SMPL fits (PROXD qualitative / MoSh quantitative):
+    # loaded per frame and saved beside results as gt_results.npz for
+    # `--mode prox` eval
+    prox_load_fitting: bool = False
+    prox_fitting_root: str = ""  # override the fittings/{mosh,proxd} walk
+    # observation modalities
+    amass_use_joints: bool = True
+    amass_use_verts: bool = False
+    amass_use_points: bool = False
+    amass_noise_std: float = 0.0
+    amass_make_partial: bool = False
+    amass_partial_height: float = 0.9
+    # models
+    humor_ckpt: str = ""
+    vposer_ckpt: str = ""
+    init_motion_prior_ckpt: str = ""
+    smplh_root: str = "./body_models/smplh"
+    gt_body_type: str = "smplh"
+    # the JAX package's low-precision HuMoR matmul knob: the port runs
+    # float32 only and refuses any other value
+    model_compute_dtype: str = ""
+    # optimization
+    lr: float = 1.0
+    num_iters: Tuple[int, ...] = (30, 80, 70)
+    # multiplies every stage's iteration budget (and the stage-3 freeze
+    # points); num_iters count single L-BFGS iterations
+    num_iters_scale: int = 4
+    lbfgs_max_iter: int = 20   # zoom probe budget (zoom search only)
+    # "auto" (parallel below 12 windows, armijo from 12), "parallel"
+    # (one batched value+grad of a step grid an iteration), "armijo"
+    # (values of the grid, then one value+grad), "zoom" (sequential
+    # strong-Wolfe), or "hybrid" (parallel, then a zoom polish tail)
+    lbfgs_linesearch: str = "auto"
+    # hybrid only: fraction of each stage's iterations run as the zoom
+    # polish tail
+    lbfgs_polish_frac: float = 0.08
+    # parallel/armijo grid size; 0 = by window batch, clamp(128 // B, 4,
+    # 16) (fitting/optimizer.resolve_candidates)
+    lbfgs_candidates: int = 8
+    # convergence early exit (torch LBFGS's tolerance_grad /
+    # tolerance_change semantics, e.g. 1e-7 / 1e-9); 0 = off, the full
+    # fixed budget
+    lbfgs_tol_grad: float = 0.0
+    lbfgs_tol_change: float = 0.0
+    lbfgs_stall_patience: int = 3
+    stage3_tune_init_num_frames: int = 15
+    stage3_freeze_start: int = 30
+    stage3_freeze_end: int = 55
+    stage3_no_tune_init_state: bool = False
+    stage3_contact_refine_only: bool = False
+    # weights: one value per stage
+    joint3d_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    joint3d_rollout_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    vert3d_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    point3d_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    joint2d_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    pose_prior_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    shape_prior_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    motion_prior_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    init_motion_prior_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    joint_consistency_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    bone_length_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    joint3d_smooth_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    contact_vel_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    contact_height_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    floor_reg_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    rgb_overlap_consist_weight: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    # robustness
+    robust_loss: str = "none"
+    robust_tuning_const: float = 4.6851
+    joint2d_sigma: float = 100.0
+    # output
+    out: str = "./out/humor_fit"
+    save_results: bool = True
+    save_stages_results: bool = False
+    seed: int = 0
+    # where the fit runs: the card unless "cpu" is asked for (raises
+    # without a GPU)
+    device: str = "cuda"
+
+    def stage_weights(self):
+        """-> 3 StageWeights from the per-stage weight lists."""
+        from humor_torch.fitting.energies import StageWeights
+
+        def w(name, i):
+            vals = getattr(self, name)
+            return float(vals[i]) if i < len(vals) else 0.0
+
+        mapping = {
+            "joints3d": "joint3d_weight",
+            "joints3d_rollout": "joint3d_rollout_weight",
+            "verts3d": "vert3d_weight",
+            "points3d": "point3d_weight",
+            "joints2d": "joint2d_weight",
+            "pose_prior": "pose_prior_weight",
+            "shape_prior": "shape_prior_weight",
+            "motion_prior": "motion_prior_weight",
+            "init_motion_prior": "init_motion_prior_weight",
+            "joint_consistency": "joint_consistency_weight",
+            "bone_length": "bone_length_weight",
+            "joints3d_smooth": "joint3d_smooth_weight",
+            "contact_vel": "contact_vel_weight",
+            "contact_height": "contact_height_weight",
+            "floor_reg": "floor_reg_weight",
+            "rgb_overlap_consist": "rgb_overlap_consist_weight",
+        }
+        return tuple(
+            StageWeights(**{k: w(v, i) for k, v in mapping.items()})
+            for i in range(NSTAGES))
+
+
+@dataclass
+class VizCLIConfig:
+    """Flags for the fit-result visualization CLI
+    (`python -m humor_torch.viz.fitting`)."""
+
+    # fitting output dir (the fit CLI's --out): holds final_results/ and
+    # per-window <seq>/ result dirs
+    results: str = ""
+    out: str = "./out/humor_viz"
+    # dir of the source video frames (sorted); blank canvas when absent
+    frames: str = ""
+    intrinsics: str = ""       # json [[fx,0,cx],[0,fy,cy],[0,0,1]]
+    smplh_root: str = "./body_models/smplh"
+    viz_final_only: bool = False   # skip the per-window sub-sequences
+    viz_prior_frame: bool = False  # also render *_results_prior.npz
+    viz_obs_2d: bool = False       # overlay observed OpenPose keypoints
+    viz_no_mesh: bool = False      # skeleton overlays only
+    max_frames: int = 120
+    render_width: int = 1920
+    render_height: int = 1080
+    device: str = "cuda"       # where the meshes are skinned

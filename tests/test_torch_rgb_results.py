@@ -101,10 +101,36 @@ def test_observation_batch(video, seq_len):
             np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
 
 
-def test_observation_batch_mask_path_waits(video):
-    path, _ = video
-    with pytest.raises(NotImplementedError, match="A5"):
-        TD.RGBVideoDataset(path, TD.RGBVideoConfig(), mask_path=path)
+def test_observation_batch_mask_path_waits(video, tmp_path):
+    """The person masks (8-bit PNGs written with PIL, one frame without
+    one, one as RGB): the port reads them with PIL where JAX reads them
+    with cv2, and the masked batch is exactly JAX's."""
+    from PIL import Image
+
+    path, n = video
+    mdir = tmp_path / "masks"
+    mdir.mkdir()
+    rng = np.random.RandomState(3)
+    for t in range(n):
+        if t == 4:
+            continue
+        m = ((rng.rand(480, 640) > 0.5) * 255).astype(np.uint8)
+        im = Image.fromarray(m)
+        (im.convert("RGB") if t == 5 else im).save(
+            mdir / f"frame_{t:06d}.png")
+    np.testing.assert_array_equal(
+        TD.read_gray_png(str(mdir / "frame_000003.png")),
+        np.asarray(Image.open(mdir / "frame_000003.png")))
+    cfg_t = TD.RGBVideoConfig(seq_len=8, overlap_len=3)
+    cfg_j = JD.RGBVideoConfig(seq_len=8, overlap_len=3)
+    out = TD.RGBVideoDataset(path, cfg_t, mask_path=str(mdir))
+    ref = JD.RGBVideoDataset(path, cfg_j, mask_path=str(mdir))
+    assert (out.joints2d[..., 2] != ref.joints2d[..., 2]).sum() == 0
+    assert (out.joints2d[..., 2] == 0).sum() > (
+        TD.RGBVideoDataset(path, cfg_t).joints2d[..., 2] == 0).sum()
+    ob, rb = out.observation_batch(), ref.observation_batch()
+    for k in rb:
+        np.testing.assert_array_equal(ob[k], rb[k], err_msg=k)
 
 
 def _windows(rng, B, T, nb=16):
