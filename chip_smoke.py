@@ -78,7 +78,21 @@ Phases, each of which fails the run (non-zero exit) on error:
      card and on the CPU (the first RGB_STAGE3_ITERS history values within
      RGB_STAGE3_RTOL); and the fit CLI with configs/fit_proxd.cfg on a
      small PROX recording (16-bit depth and body-index PNGs, 2 windows x
-     20 frames at 3/3/3), which must launch the nearest neighbour.
+     20 frames at 3/3/3), which must launch the nearest neighbour;
+  8. training (configs/train_humor.cfg's HuMoR 1024/48 with the SMPL
+     losses, 6890-vertex synthetic male and female bodies): one
+     supervised and one scheduled-sampling loss and gradient on the card
+     against the CPU at 16 windows x 10 transitions with the same weights
+     and draws (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL); both steps timed at the
+     config's 200 x 10 with their peak device memory; the train CLI at
+     200 x 10 on the synthetic sequences with the bodies as SMPL+H npz
+     files, 3 epochs of 8 steps (teacher-forced, mixed, fully scheduled
+     sampling): every logged stat finite, each phase run, its
+     checkpoints written; configs/train_humor_qual.cfg for 2 epochs of 2
+     steps (its SMPL-joint feedback in the second); then the fit CLI with its final_model.npz on
+     phase 7's RGB layout, which must launch both rollout kernels and
+     give finite losses and outputs. Training itself launches none of
+     the three kernels (JAX trains through plain XLA too).
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then the result line {"ok": true, "device": {...}} last. Imports nothing
@@ -86,6 +100,7 @@ of JAX or of the JAX package.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1298,12 +1313,12 @@ def write_intrinsics(path, cam_f=CAM_F, cam_c=CAM_C):
     return path
 
 
-def write_body_npz(root, body):
-    """`body` as <root>/neutral/model.npz, the AMASS SMPL+H layout that
+def write_body_npz(root, body, gender="neutral"):
+    """`body` as <root>/<gender>/model.npz, the AMASS SMPL+H layout that
     body_model.smpl.load_smpl_npz (and so the CLIs' --smplh-root) reads."""
     import numpy as np
 
-    d = os.path.join(root, "neutral")
+    d = os.path.join(root, gender)
     os.makedirs(d, exist_ok=True)
     V = body.num_verts
     parents = np.asarray(body.parents, np.int64)
@@ -1514,6 +1529,259 @@ def run_clis(models, device="cuda", iters=CLI_ITERS):
     return launches
 
 
+# phase 8: training. Card against CPU at TRAIN_CMP_B windows x
+# TRAIN_T transitions with injected draws: loss and grad_norm within
+# TRAIN_LOSS_RTOL, every gradient leaf within TRAIN_GRAD_TOL max-scaled
+# (the tier-1 tolerances against JAX); then steps timed at the config's
+# B=200, the train CLI at B=200 on the synthetic sequences through the
+# three curriculum phases, and the fit CLI on its checkpoint.
+TRAIN_T = 10                   # configs/train_humor.cfg --sample-num-frames
+TRAIN_B = 200                  # configs/train_humor.cfg --batch-size
+TRAIN_CMP_B = 16
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_TIMED = 5                # timed steps of each kind at B=200
+TRAIN_EPOCHS, TRAIN_STEPS = 3, 8   # supervised, mixed, full sched. sampling
+SS_USE_GT = (True, False, False, True, False, False, False, True, False,
+             False)            # the card-vs-CPU scheduled-sampling draw
+
+
+def train_bodies(num_verts=V_VERTS):
+    """Seeded synthetic male and female bodies (the train CLI's
+    stand-in seeds) at the full vertex count."""
+    from humor_torch.body_model.smpl import synthetic_smpl_model
+
+    return {"male": synthetic_smpl_model(seed=10, num_verts=num_verts),
+            "female": synthetic_smpl_model(seed=20, num_verts=num_verts)}
+
+
+def train_batch(bodies, batch, seed, device):
+    """A batch of synthetic windows as the train CLI builds them."""
+    from humor_torch.data.synthetic import synthetic_world_batch
+    from humor_torch.data.windows import window_to_pairs
+
+    world, meta = synthetic_world_batch(seed, batch, TRAIN_T + 1,
+                                        model=bodies["male"], device=device)
+    din, dout, _ = window_to_pairs(world)
+    return {"data_in": din, "data_out": dout, "betas": meta["betas"],
+            "gender_ids": meta["gender_ids"].long() % 2}
+
+
+def train_grads(params, bodies, batch, device, sched, eps):
+    """(loss, grad_norm, grads) of one step's loss on `device`."""
+    import torch
+
+    from humor_torch.losses.elbo import LossConfig
+    from humor_torch.models import humor as H
+    from humor_torch.train import step as TS
+
+    cfg = H.HumorConfig()
+    to = lambda x: x.to(device)
+    models = {k: v.to(device) for k, v in bodies.items()}
+    params = TS.tree_map(lambda p: to(p).detach().requires_grad_(True),
+                         params)
+    batch = {k: ({n: to(v) for n, v in b.items()} if isinstance(b, dict)
+                 else to(b)) for k, b in batch.items()}
+    if sched:
+        fn = TS.sched_samp_loss_fn(cfg, LossConfig(), models)
+        loss, _ = fn(params, batch, 10, 0.5, use_gt=SS_USE_GT,
+                     eps=to(eps))
+    else:
+        fn = TS.supervised_loss_fn(cfg, LossConfig(), models)
+        loss, _ = fn(params, batch, 10, eps=to(eps))
+    grads = torch.autograd.grad(loss, TS.tree_leaves(params))
+    return (float(loss.detach()), float(TS.global_norm(grads)),
+            [g.detach().cpu() for g in grads])
+
+
+def compare_train_steps(device="cuda", batch=TRAIN_CMP_B):
+    """Phase 8a: the supervised and scheduled-sampling losses and
+    gradients on the card against the CPU, same weights, batch and
+    draws."""
+    import torch
+
+    from humor_torch.models import humor as H
+
+    bodies = train_bodies()
+    params = H.init_params(H.HumorConfig(), torch.Generator().manual_seed(3))
+    data = train_batch(bodies, batch, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    eps = {False: torch.randn(batch * TRAIN_T, 48, generator=g),
+           True: torch.randn(TRAIN_T, batch, 48, generator=g)}
+    rec = {}
+    for sched in (False, True):
+        card = train_grads(params, bodies, data, device, sched, eps[sched])
+        cpu = train_grads(params, bodies, data, "cpu", sched, eps[sched])
+        scaled = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(card[2], cpu[2]))
+        name = "sched_samp" if sched else "supervised"
+        rec[name] = {"loss_card": card[0], "loss_cpu": cpu[0],
+                     "loss_rel": abs(card[0] - cpu[0]) / abs(cpu[0]),
+                     "grad_norm_rel": abs(card[1] - cpu[1]) / abs(cpu[1]),
+                     "grad_max_scaled": scaled}
+    print("[train card vs cpu] " + json.dumps(rec))
+    for name, r in rec.items():
+        if not (r["loss_rel"] <= TRAIN_LOSS_RTOL
+                and r["grad_norm_rel"] <= TRAIN_LOSS_RTOL
+                and r["grad_max_scaled"] <= TRAIN_GRAD_TOL):
+            fail(f"{name} step on the card parts from the CPU: {r}")
+    return rec
+
+
+def time_train_steps(device="cuda", batch=TRAIN_B, reps=TRAIN_TIMED):
+    """ms a supervised and a scheduled-sampling (use_gt_p 0.5) step at
+    the config's batch, with the peak device memory of each."""
+    import torch
+
+    from humor_torch.losses.elbo import LossConfig
+    from humor_torch.models import humor as H
+    from humor_torch.train import step as TS
+
+    bodies = {k: v.to(device) for k, v in train_bodies().items()}
+    cfg = H.HumorConfig()
+    opt = TS.make_optimizer()
+    state = TS.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                                device)
+    sup, ss, _ = TS.make_train_steps(cfg, LossConfig(), opt, bodies)
+    data = train_batch(bodies, batch, seed=1, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    rec = {}
+    for name, step in (("supervised", lambda s: sup(s, data, 10,
+                                                    generator=gen)),
+                       ("sched_samp", lambda s: ss(s, data, 10, 0.5,
+                                                   generator=gen))):
+        state, stats = step(state)            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(reps):
+            state, stats = step(state)
+            losses.append(float(stats["total_loss"]))
+        torch.cuda.synchronize()
+        rec[name] = {"ms": 1e3 * (time.perf_counter() - t0) / reps,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "losses": losses}
+    print("[train steps B=%d] " % batch + json.dumps(rec))
+    if not all(all(map(math.isfinite, r["losses"])) for r in rec.values()):
+        fail(f"timed train steps gave non-finite losses: {rec}")
+    return rec
+
+
+def run_training(models, device="cuda", batch=TRAIN_B, steps=TRAIN_STEPS,
+                 iters=CLI_ITERS):
+    """Phase 8b-c: the train CLI (configs/train_humor.cfg at `batch`)
+    on the synthetic sequences with 6890-vertex male and female bodies
+    as SMPL+H npz files, TRAIN_EPOCHS epochs of `steps` steps covering
+    the supervised, mixed and fully scheduled-sampling phases; then the
+    fit CLI with its final checkpoint on phase 7's RGB layout. Returns
+    the launches of each."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from humor_torch.train import cli as TC
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        smplh = os.path.join(tmp, "smplh")
+        for gender, body in train_bodies().items():
+            write_body_npz(smplh, body, gender)
+        write_body_npz(smplh, models.body)
+        out = os.path.join(tmp, "train")
+        reset_launches()
+        t0 = time.perf_counter()
+        TC.main(["@" + os.path.join(root, "configs", "train_humor.cfg"),
+                 "--device", device, "--batch-size", str(batch),
+                 "--epochs", str(TRAIN_EPOCHS), "--steps-per-epoch",
+                 str(steps), "--sched-samp-start", "0",
+                 "--sched-samp-end", "2", "--val-every", "1",
+                 "--print-every", str(steps), "--out", out,
+                 "--data-path", os.path.join(tmp, "no_amass"),
+                 "--smplh-root", smplh])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["train_cli"] = read_launches()
+        with open(os.path.join(out, "stats.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(os.path.join(out, "train.log")) as f:
+            log = f.read()
+        losses = [r["total_loss"] for r in rows]
+        phases = {p: f"gt_p={p}" in log for p in ("1.00", "0.50", "0.00")}
+        ckpts = {n: os.path.exists(os.path.join(out, n)) for n in (
+            "best_train_model.npz", "best_model.npz", "final_model.npz")}
+        print("[train cli] " + json.dumps({
+            "seconds": wall, "steps": len(rows), "batch": batch,
+            "ms_per_step_incl_data_val_ckpt": 1e3 * wall / max(len(rows), 1),
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None,
+            "phases": phases, "checkpoints": ckpts,
+            "launches": launches["train_cli"]}))
+        if len(rows) != TRAIN_EPOCHS * steps or not np.isfinite(
+                [v for r in rows for v in r.values()]).all():
+            fail(f"the train CLI logged {len(rows)} steps (want "
+                 f"{TRAIN_EPOCHS * steps}) or non-finite stats")
+        if not all(phases.values()) or not all(ckpts.values()):
+            fail(f"the train CLI missed a curriculum phase {phases} or a "
+                 f"checkpoint {ckpts}")
+
+        # HuMoR-Qual: an epoch teacher-forced, then one fully scheduled
+        # with the SMPL joints fed back
+        qual = os.path.join(tmp, "train_qual")
+        reset_launches()
+        t0 = time.perf_counter()
+        TC.main(["@" + os.path.join(root, "configs", "train_humor_qual.cfg"),
+                 "--device", device, "--batch-size", str(batch),
+                 "--epochs", "2", "--steps-per-epoch", "2",
+                 "--sched-samp-start", "0", "--sched-samp-end", "1",
+                 "--out", qual, "--data-path", os.path.join(tmp, "no_amass"),
+                 "--smplh-root", smplh])
+        launches["train_qual_cli"] = read_launches()
+        with open(os.path.join(qual, "stats.jsonl")) as f:
+            qrows = [json.loads(line) for line in f]
+        with open(os.path.join(qual, "train.log")) as f:
+            qlog = f.read()
+        print("[train qual cli] " + json.dumps({
+            "seconds": time.perf_counter() - t0, "steps": len(qrows),
+            "losses": [r["total_loss"] for r in qrows],
+            "launches": launches["train_qual_cli"]}))
+        if len(qrows) != 4 or "gt_p=0.00" not in qlog or not np.isfinite(
+                [v for r in qrows for v in r.values()]).all():
+            fail("the HuMoR-Qual train CLI missed its scheduled-sampling "
+                 "epoch or logged non-finite stats")
+
+        video = write_keypoints(os.path.join(tmp, "video"),
+                                rgb_video_joints2d(models))
+        intr = write_intrinsics(os.path.join(tmp, "intrinsics.json"))
+        res, fit_wall, launches["trained_fit_cli"] = _cli_fit(
+            ["--data-path", video, "--data-type", "RGB", "--seq-len", "60",
+             "--overlap-len", "10", "--rgb-intrinsics", intr,
+             "--smplh-root", smplh, "--humor-ckpt",
+             os.path.join(out, "final_model.npz"),
+             "--num-iters", *map(str, iters), "--num-iters-scale", "1",
+             "--stage3-freeze-start", str(CLI_FREEZE[0]),
+             "--stage3-freeze-end", str(CLI_FREEZE[1]),
+             "--out", os.path.join(tmp, "fit_trained")], device)
+        finite = all(bool(torch.isfinite(v).all()) for v in (
+            *res.losses.values(), res.final["trans"],
+            res.final["pose_body"]))
+        print("[trained fit cli] " + json.dumps({
+            "seconds": fit_wall, "finite": finite,
+            "final_losses": {k: float(v[-1]) for k, v in res.losses.items()},
+            "launches": launches["trained_fit_cli"]}))
+        for k in ("rollout_fwd", "rollout_bwd"):
+            if launches["trained_fit_cli"][k] <= 0:
+                fail(f"the fit CLI on the trained checkpoint never launched "
+                     f"{k}")
+        if not finite:
+            fail("the fit CLI on the trained checkpoint gave non-finite "
+                 "losses or outputs")
+    return launches
+
+
 def run_fit(models):
     import torch
 
@@ -1616,6 +1884,10 @@ def main():
     compare_rgb_stage3(models)
     # 7. the CLIs
     by_path.update(run_clis(models))
+    # 8. training
+    train_cmp = compare_train_steps()
+    train_steps = time_train_steps()
+    by_path.update(run_training(models))
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in by_path["prox_fit"]}
 

@@ -10,7 +10,8 @@ nothing here imports JAX:
   * `gmm_params`: (weights, means, covs) -> GmmParams;
   * `load_checkpoint`: the npz files humor_tpu/utils/checkpoint.py
     writes (msgpack-serialized pytrees in flax's encoding), decoded by
-    the small msgpack reader below.
+    the small msgpack reader below; `encode_pytree` is the matching
+    writer (humor_torch.utils.checkpoint).
 """
 
 from __future__ import annotations
@@ -129,6 +130,104 @@ class _Reader:
             dtype = dtype.decode()
         arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
         return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+class _Writer:
+    """Minimal msgpack encoder for what flax.serialization.to_bytes
+    emits: maps with str keys, ints, floats, bools, None, and numpy
+    arrays as the ndarray extension ((shape, dtype name, C bytes))."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _head(self, n: int, fix: int, fix_max: int, codes) -> None:
+        if n <= fix_max:
+            self.out.append(fix | n)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BH", codes[0], n)
+        else:
+            self.out += struct.pack(">BI", codes[1], n)
+
+    def _bin(self, b: bytes) -> None:
+        n = len(b)
+        if n < 1 << 8:
+            self.out += struct.pack(">BB", 0xC4, n)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BH", 0xC5, n)
+        else:
+            self.out += struct.pack(">BI", 0xC6, n)
+        self.out += b
+
+    def _ext(self, code: int, b: bytes) -> None:
+        n = len(b)
+        if n in (1, 2, 4, 8, 16):
+            self.out += struct.pack(">Bb", 0xD4 + (n.bit_length() - 1), code)
+        elif n < 1 << 8:
+            self.out += struct.pack(">BBb", 0xC7, n, code)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BHb", 0xC8, n, code)
+        else:
+            self.out += struct.pack(">BIb", 0xC9, n, code)
+        self.out += b
+
+    def write(self, x: Any) -> "_Writer":
+        if x is None:
+            self.out.append(0xC0)
+        elif isinstance(x, (bool, np.bool_)):
+            self.out.append(0xC3 if x else 0xC2)
+        elif isinstance(x, int):
+            if 0 <= x <= 0x7F or -32 <= x < 0:
+                self.out += struct.pack(">b" if x < 0 else ">B", x)
+            elif x >= 0:
+                self.out += struct.pack(">BQ", 0xCF, x)
+            else:
+                self.out += struct.pack(">Bq", 0xD3, x)
+        elif isinstance(x, float):
+            self.out += struct.pack(">Bd", 0xCB, x)
+        elif isinstance(x, str):
+            b = x.encode()
+            if len(b) < 32:
+                self.out.append(0xA0 | len(b))
+            else:
+                self._head(len(b), 0, -1, (0xDA, 0xDB))
+            self.out += b
+        elif isinstance(x, bytes):
+            self._bin(x)
+        elif isinstance(x, (list, tuple)):
+            self._head(len(x), 0x90, 0x0F, (0xDC, 0xDD))
+            for v in x:
+                self.write(v)
+        elif isinstance(x, dict):
+            self._head(len(x), 0x80, 0x0F, (0xDE, 0xDF))
+            for k, v in x.items():
+                self.write(k)
+                self.write(v)
+        elif isinstance(x, np.ndarray):
+            arr = np.ascontiguousarray(x)
+            inner = _Writer().write([list(arr.shape), arr.dtype.name,
+                                     arr.tobytes()]).out
+            self._ext(_EXT_NDARRAY, bytes(inner))
+        else:
+            raise TypeError(f"cannot msgpack {type(x).__name__}")
+        return self
+
+
+def _state_dict(tree: Any) -> Any:
+    """flax's state dict: lists become {"0": .., "1": ..}, tensors numpy."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def encode_pytree(tree: Any) -> bytes:
+    """Nested dicts/lists of tensors or arrays -> the bytes
+    flax.serialization.to_bytes writes for the same pytree (arrays of at
+    most flax's 2**30-byte chunk size)."""
+    return bytes(_Writer().write(_state_dict(tree)).out)
 
 
 def _lists_back(tree: Any) -> Any:

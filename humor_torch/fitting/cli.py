@@ -16,9 +16,10 @@ PROX or iMapper input without them raises. All windows of the video are fitted a
 batch, tied by the overlap-consistency terms, then saved per stage and
 stitched into one sequence. The fit runs on the card unless `--device
 cpu` is given; asking for the card without one raises. AMASS joint
-fitting needs the training data pipeline, which the port does not have
-yet (ROADMAP A6). Missing checkpoints fall back to a synthetic body and
-random weights from fixed seeds.
+fitting (the JAX package's data/fit_dataset.py over this package's
+training data pipeline) is not ported yet (ROADMAP A6). Missing
+checkpoints fall back to a synthetic body and random weights from fixed
+seeds.
 """
 
 from __future__ import annotations
@@ -92,8 +93,8 @@ def main(argv=None):
     dev = resolve_device(cfg.device)
     if cfg.data_type == "AMASS":
         raise NotImplementedError(
-            "--data-type AMASS builds its observations from the training "
-            "data pipeline, which humor_torch does not have yet (ROADMAP "
+            "--data-type AMASS (observations from AMASS sequences, the "
+            "JAX package's data/fit_dataset.py) is not ported yet (ROADMAP "
             "A6); the video types are " + ", ".join(VIDEO_TYPES))
     if cfg.data_type not in VIDEO_TYPES:
         raise NotImplementedError(f"unknown data type {cfg.data_type!r}")

@@ -1,4 +1,4 @@
-"""HuMoR transition CVAE (port of humor_tpu/models/humor.py, TTO subset).
+"""HuMoR transition CVAE (port of humor_tpu/models/humor.py).
 
     posterior  q(z | x_{t-1}, x_t)   4x1024 MLP -> (mu, var)
     cond prior p(z | x_{t-1})        4x1024 MLP -> (mu, var)
@@ -7,9 +7,12 @@
                                      (additive for vectors, R_delta @ R_prev
                                      for rotations).
 
-Only the configuration the TTO runs is supported: steps_in=1, matrix
-input rotations, axis-angle output deltas, conditional prior. Scheduled
-sampling and HuMoR-Qual SMPL feedback (training) are not ported yet.
+Only the configuration the released models use is supported: steps_in=1,
+matrix input rotations, axis-angle output deltas, conditional prior. The
+training forwards (`single_step`, `scheduled_sampling`) take every random
+draw as an argument, or draw it from a torch.Generator when it is not
+given: JAX's random streams cannot be reproduced in torch, so the tests
+hand both packages the same draws.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ class HumorConfig:
     conditional_prior: bool = True
     output_delta: bool = True
     model_data_config: str = "smpl+joints+contacts"
+    # scheduled sampling feeds its own predictions back without gradient
+    detach_sched_samp: bool = True
 
     def __post_init__(self):
         if (self.in_rot_rep, self.out_rot_rep, self.steps_in,
@@ -103,6 +108,18 @@ def prior(cfg: HumorConfig, params: Dict, past_in: torch.Tensor
     return mean, torch.exp(logvar)
 
 
+def rsample(mean: torch.Tensor, var: torch.Tensor,
+            eps: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """mean + eps * sqrt(var); eps ~ N(0, 1) is drawn from `generator` (on
+    the generator's device) when not given."""
+    if eps is None:
+        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                          device=generator.device if generator is not None
+                          else mean.device).to(mean.device)
+    return mean + eps * torch.sqrt(var)
+
+
 def decode(cfg: HumorConfig, params: Dict, z: torch.Tensor,
            past_in: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(z, x_{t-1}) -> typed next state with matrix rotations (+ raw
@@ -127,6 +144,24 @@ def decode(cfg: HumorConfig, params: Dict, z: torch.Tensor,
         else:
             out[name] = val + prev
     return out
+
+
+class StepOutput(NamedTuple):
+    pred: Dict[str, torch.Tensor]          # typed next state (mat rots)
+    posterior: Tuple[torch.Tensor, torch.Tensor]
+    prior: Tuple[torch.Tensor, torch.Tensor]
+    z: torch.Tensor
+
+
+def single_step(cfg: HumorConfig, params: Dict, past_in: torch.Tensor,
+                t_in: torch.Tensor, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> StepOutput:
+    """Training forward: posterior sample (noise `eps`, else drawn from
+    `generator`) -> decode."""
+    qm, qv = posterior(cfg, params, past_in, t_in)
+    pm, pv = prior(cfg, params, past_in)
+    z = rsample(qm, qv, eps, generator)
+    return StepOutput(decode(cfg, params, z, past_in), (qm, qv), (pm, pv), z)
 
 
 def state_to_input(cfg: HumorConfig, state_mat: Dict[str, torch.Tensor]
@@ -193,9 +228,7 @@ def rollout(cfg: HumorConfig, params: Dict,
         elif use_mean:
             z = pm
         else:
-            eps = torch.randn(pm.shape, generator=generator,
-                              dtype=pm.dtype).to(pm.device)
-            z = pm + eps * torch.sqrt(pv)
+            z = rsample(pm, pv, generator=generator)
         pred = decode(cfg, params, z, past_in)
         world = apply_world2local(FrameTransform(g_rot, g_trans, t2j), pred,
                                   invert=True)
@@ -242,3 +275,72 @@ def infer_global_seq(cfg: HumorConfig, params: Dict,
     qm, qv = posterior(cfg, params, past_in, t_in)
     pm, pv = prior(cfg, params, past_in)
     return InferResult(prior=(pm, pv), posterior=(qm, qv))
+
+
+class SchedSampOutput(NamedTuple):
+    pred: Dict[str, torch.Tensor]                 # local-frame (B, T, D)
+    posterior: Tuple[torch.Tensor, torch.Tensor]  # (B, T, latent)
+    prior: Tuple[torch.Tensor, torch.Tensor]
+
+
+def scheduled_sampling(cfg: HumorConfig, params: Dict,
+                       x_past_seq: torch.Tensor, x_t_seq: torch.Tensor,
+                       init_state: Dict[str, torch.Tensor], use_gt_p: float,
+                       smpl_joint_fn=None, use_gt=None,
+                       eps: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> SchedSampOutput:
+    """Teacher-forcing curriculum over T steps: step t takes the GT input
+    x_past_seq[:, t] where use_gt[t], else the model's own previous
+    prediction re-canonicalized into its heading frame (detached with
+    cfg.detach_sched_samp). x_past_seq, x_t_seq (B, T, D_in) are GT
+    canonical inputs/outputs, init_state typed (B, D) matrix rotations.
+
+    use_gt: (T,) booleans, one draw shared by the batch (step 0 always
+    takes GT); drawn as uniform(generator) < use_gt_p when not given.
+    eps: (T, B, latent) posterior noise, else drawn from `generator`.
+    `smpl_joint_fn(trans, root_orient_mat, pose_body_mat) -> (B, 66)` is
+    HuMoR-Qual training: the fed-back joints come from an SMPL forward
+    while the loss still sees the regressed joints."""
+    B, T, _ = x_past_seq.shape
+    if use_gt is None:
+        draw = torch.rand(T, generator=generator,
+                          device=generator.device if generator is not None
+                          else "cpu")
+        use_gt = draw < use_gt_p
+    use_gt = [bool(u) for u in torch.as_tensor(use_gt).tolist()]
+    use_gt[0] = True
+    zeros1 = torch.zeros(B, 1, dtype=x_past_seq.dtype,
+                         device=x_past_seq.device)
+    t2j = torch.cat([-init_state["joints"][:, :2], zeros1], dim=-1)
+    local = {k: init_state[k] for k in cfg.input_spec.names}
+    outs = []
+    for t in range(T):
+        past_in = (x_past_seq[:, t] if use_gt[t]
+                   else state_to_input(cfg, local))
+        out = single_step(cfg, params, past_in, x_t_seq[:, t],
+                          eps=None if eps is None else eps[t],
+                          generator=generator)
+        outs.append(out)
+        if t == T - 1:
+            break
+        fed = out.pred
+        if cfg.detach_sched_samp:
+            fed = {k: v.detach() for k, v in fed.items()}
+        if smpl_joint_fn is not None and "joints" in fed:
+            fed = dict(fed)
+            with torch.set_grad_enabled(not cfg.detach_sched_samp
+                                        and torch.is_grad_enabled()):
+                fed["joints"] = smpl_joint_fn(
+                    fed["trans"], fed["root_orient"], fed["pose_body"])
+        local = apply_world2local(
+            _heading_frame(fed, t2j),
+            {k: fed[k] for k in cfg.input_spec.names})
+
+    stack = lambda xs: torch.stack(xs, dim=1)
+    return SchedSampOutput(
+        pred={k: stack([o.pred[k] for o in outs]) for k in outs[0].pred},
+        posterior=(stack([o.posterior[0] for o in outs]),
+                   stack([o.posterior[1] for o in outs])),
+        prior=(stack([o.prior[0] for o in outs]),
+               stack([o.prior[1] for o in outs])))

@@ -144,3 +144,12 @@ def compute_world2aligned_mat(R: torch.Tensor) -> torch.Tensor:
     """World root orientations (..., 3, 3) -> heading-canonicalizing
     rotations (body-right = -R[:, :, 0])."""
     return compute_aligned_from_right(-R[..., :, 0])
+
+
+def compute_world2aligned_joints_mat(joints: torch.Tensor, left_idx: int = 1,
+                                     right_idx: int = 2) -> torch.Tensor:
+    """Heading canonicalization from the hip joints (..., J, 3) (default
+    indices: SMPL's left and right upper legs)."""
+    body_right = joints[..., right_idx, :] - joints[..., left_idx, :]
+    body_right = body_right / _norm_safe(body_right)
+    return compute_aligned_from_right(body_right)

@@ -1,5 +1,5 @@
 """Config / flag system: argparse with `@file.cfg` argument files (port
-of humor_tpu/utils/config.py: the fit and viz CLIs' configs).
+of humor_tpu/utils/config.py: the train, fit and viz CLIs' configs).
 
 Each line of an @file holds whitespace-separated tokens ("--flag value"),
 blank lines and "#" comments are skipped. A config is a dataclass whose
@@ -78,6 +78,81 @@ def parse_into(cls: Type[T], argv: Optional[Sequence[str]] = None,
             v = tuple(v)
         kwargs[f.name] = v
     return cls(**kwargs)
+
+
+@dataclass
+class TrainCLIConfig:
+    # data
+    data_path: str = "./data/amass_processed"
+    train_datasets: Tuple[str, ...] = ()
+    val_datasets: Tuple[str, ...] = ()
+    batch_size: int = 200
+    sample_num_frames: int = 10
+    data_noise_std: float = 0.0
+    # stage the training columns of the frame store in device memory and
+    # gather batches there (data/device_store.py): 1 = on, 0 = off (host
+    # gather, then a copy a batch), -1 = on when they fit a quarter of the
+    # card's memory
+    data_on_device: int = -1
+    # model
+    latent_size: int = 48
+    in_rot_rep: str = "mat"
+    out_rot_rep: str = "aa"
+    model_data_config: str = "smpl+joints+contacts"
+    conditional_prior: bool = True
+    output_delta: bool = True
+    # HuMoR-Qual: SMPL-forward joints fed back during scheduled sampling
+    model_use_smpl_joint_inputs: bool = False
+    # past-window length; the port runs 1 only
+    model_steps_in: int = 1
+    # the JAX package's low-precision knob; the port runs float32 only
+    model_compute_dtype: str = ""
+    # loss
+    kl_loss: float = 0.0004
+    kl_loss_anneal_start: int = 0
+    kl_loss_anneal_end: int = 50
+    contacts_loss: float = 0.01
+    contacts_vel_loss: float = 0.01
+    smpl_joint_loss: float = 1.0
+    smpl_mesh_loss: float = 1.0
+    smpl_joint_consistency_loss: float = 1.0
+    # optimization
+    out: str = "./out/humor_train"
+    epochs: int = 200
+    lr: float = 1e-4
+    sched_milestones: Tuple[int, ...] = (50, 80, 140)
+    sched_decays: Tuple[float, ...] = (0.5, 0.2, 0.4)
+    sched_samp_start: int = 10
+    sched_samp_end: int = 20
+    val_every: int = 2
+    save_every: int = 25
+    print_every: int = 10
+    # the JAX package's k steps a dispatch; the port takes 0 or 1 (one
+    # step a batch: train.trainer.Trainer refuses more)
+    steps_per_dispatch: int = 0
+    # batches built ahead of the steps by a daemon thread; 0: no thread
+    prefetch_depth: int = 2
+    ckpt: str = ""
+    no_load_optim: bool = False
+    steps_per_epoch: int = 200
+    seed: int = 0
+    # body model
+    smplh_root: str = "./body_models/smplh"
+    use_smpl_losses: bool = True
+    # where training runs: the card unless "cpu" is asked for (raises
+    # without a GPU)
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.model_steps_in != 1:
+            raise NotImplementedError(
+                f"--model-steps-in {self.model_steps_in}: humor_torch "
+                "trains steps_in=1 only (ROADMAP A7)")
+        if self.model_compute_dtype:
+            raise NotImplementedError(
+                f"--model-compute-dtype {self.model_compute_dtype!r}: "
+                "humor_torch trains in float32 only (ROADMAP 'Not to "
+                "port')")
 
 
 @dataclass

@@ -26,7 +26,9 @@ assert not bad, bad
 assert len(names) >= 20, names
 for n in ("fitting.cli", "fitting.lbfgs", "eval.metrics", "eval.fitting_cli",
           "data.prox", "data.imapper", "utils.config", "utils.import_torch",
-          "utils.video", "viz.utils", "viz.raster", "viz.fitting"):
+          "utils.video", "viz.utils", "viz.raster", "viz.fitting",
+          "train.cli", "train.trainer", "train.step", "losses.elbo",
+          "data.amass", "data.device_store", "utils.checkpoint"):
     assert "humor_torch." + n in names, n
 """
 
