@@ -60,12 +60,13 @@ Phases, each of which fails the run (non-zero exit) on error:
      RGB_REPROJ_LIMITS and the windows' gap over their shared frames
      after stage 2 within RGB_GAP_LIMITS (both two-sided around the JAX
      package's values), the 110 stitched frames finite and their prior
-     frame on the card against the CPU; then run stage 3 alone with the
-     decoder head damped x0.1 on the card, on the CPU and on the card
-     with the keypoints nudged, hold the card's first RGB_STAGE3_ITERS
-     loss values to the CPU's within RGB_STAGE3_RTOL and its final
-     translations' gap to the CPU within RGB_STAGE3_NUDGE_RATIO of its
-     gap to the nudged run;
+     frame on the card against the CPU; then run stage 3 alone
+     (RGB_STAGE3_CMP_ITERS iterations, half the fit's, its three phases
+     kept) with the decoder head damped x0.1 on the card, on the CPU and
+     on the card with the keypoints nudged, hold the card's first
+     RGB_STAGE3_ITERS loss values to the CPU's within RGB_STAGE3_RTOL
+     and its final translations' gap to the CPU within
+     RGB_STAGE3_NUDGE_RATIO of its gap to the nudged run;
   7. drive the command-line entry points on synthetic layouts written to
      a temporary directory: the fit CLI (humor_torch.fitting.cli) on a
      110-frame RGB video of OpenPose JSONs (phase 6's bodies) with the
@@ -114,13 +115,49 @@ Phases, each of which fails the run (non-zero exit) on error:
      raw tree of four sequences on the card and on the CPU (within
      PROCESS_TOL), then the cleanup CLI, which must move the treadmill
      sequence alone. The GMM, evaluation and preprocessing paths launch
-     no kernel.
+     no kernel;
+ 10. the trained fixture (humor_torch.testing, the JAX package's
+     humor_tpu/testing.py): mini HuMoR trained on the card for 300
+     supervised and 150 scheduled-sampling steps at 48 x 10 with the SMPL
+     losses on the 256-vertex synthetic body, mini VPoser for 800 Adam
+     steps (its round-trip error on GT poses printed); then both fits
+     of tests/test_tto_accuracy.py with the zoom line search at that
+     test's shapes, budgets and seeds: joints3d
+     (B=2 x 10 at 15/25/40, 2 cm noise, the middle third occluded) and
+     RGB (two windows of 10 sharing 4, 2 px noise, the floor optimized,
+     60/100/120), held to that test's bounds (testing.JOINTS3D_BOUNDS,
+     RGB_BOUNDS: visible and occluded MPJPE, betas, the init rollout's
+     +5 m equivariance, the floor), except the RGB fit's absolute-depth
+     bounds (testing.RGB_DEPTH_BOUNDS: visible and occluded MPJPE, the
+     floor's offset), which are printed beside their values: the JAX
+     package's own fit on its own fixture misses each of them when its
+     observation moves by under 2.5e-4 px; both rollout kernels launched
+     by each fit; the zoom search's probes an iteration of stage 3
+     printed;
+ 11. the HuMoR configurations other than the default: a supervised and
+     a scheduled-sampling loss and gradient at steps_in = 2 and at 6d
+     inputs with 9d outputs on the card against the CPU (phase 8's size
+     and tolerances); the train CLI for one epoch at --model-steps-in 2;
+     a 3/3/3 joints3d fit of an unconditional-prior, absolute-output
+     model (decoder head damped x0.1) on the card against the CPU
+     (histories within CONFIG_FIT_RTOL, the final pose within
+     CONFIG_FIT_ATOL, the same weights read as deltas farther from the
+     CPU than that, a 1e-6 m nudge's gap printed). These roll out
+     through the typed rollout and launch no kernel, by design.
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then the result line {"ok": true, "device": {...}} last. Imports nothing
 of JAX or of the JAX package.
+
+    python3 chip_smoke.py --phases 10 11
+
+builds the kernels and runs only the named phases of 3-11, each path's
+launches counted from zero, then prints each path's launches, the
+card's name and power limit and the seconds a phase; it skips phase 2
+and prints neither the kernels' line nor the result line.
 """
 
+import argparse
 import json
 import math
 import os
@@ -152,6 +189,9 @@ RGB_DEPTH_M = (0.5, 8.0)       # tests/test_tto_rgb.py's bounds on the depth
 RGB_STAGE3_ITERS = 2
 RGB_STAGE3_RTOL = 1e-4
 RGB_STAGE3_NUDGE_RATIO = 3.0
+# half the RGB fit's stage 3 (70, freeze 30/55), its three phases kept:
+# the CPU run of the comparison is most of phase 6's time
+RGB_STAGE3_CMP_ITERS, RGB_STAGE3_CMP_FREEZE = 35, (15, 28)
 # one nearest-neighbour launch per evaluation: the initial one and one per
 # iteration of stages 1 and 2 and of stage 3's three phases (30 + 25 + 15
 # iterations at the freeze points 30 and 55)
@@ -1019,10 +1059,10 @@ def make_rgb_observations(models, seed, frames=T, device="cpu"):
     return {k: v.to(device) for k, v in obs.items()}
 
 
-def rgb_config(num_iters, frames=T):
+def rgb_config(num_iters, frames=T, freeze=(30, 55)):
     """bench_tto.py's RGB stage weights (the overlap consistency at 200 in
     every stage), the floor plane optimized, the stage-3 freeze at 30 and
-    55 iterations."""
+    55 iterations (`freeze`)."""
     from humor_torch.fitting import energies as E
     from humor_torch.fitting import optimizer as O
 
@@ -1039,8 +1079,8 @@ def rgb_config(num_iters, frames=T):
         seq_len=frames, stage_weights=(w1, w2, w3),
         energy=E.EnergyConfig(smpl2op_map=SMPL2OP), num_iters=num_iters,
         optim_floor=True, stage3_tune_init_num_frames=min(15, frames),
-        stage3_freeze_start=min(30, num_iters[2]),
-        stage3_freeze_end=min(55, num_iters[2]))
+        stage3_freeze_start=min(freeze[0], num_iters[2]),
+        stage3_freeze_end=min(freeze[1], num_iters[2]))
 
 
 def check_rgb_objectives(models, frames=8, K=3, device="cuda"):
@@ -1235,10 +1275,13 @@ def run_rgb_fit(models, device="cuda", iters=RGB_ITERS):
     return launches
 
 
-def compare_rgb_stage3(models, device="cuda", iters=(0, 0, RGB_ITERS[2])):
+def compare_rgb_stage3(models, device="cuda",
+                       iters=(0, 0, RGB_STAGE3_CMP_ITERS),
+                       freeze=RGB_STAGE3_CMP_FREEZE):
     """Stage 3 of the RGB fit alone (from the depth init: stages 1-2 at 0
-    iterations; its three phases with the freeze at 30/55, both rollout
-    kernels, the floor and the overlap terms), with the decoder head
+    iterations; its three phases with the freeze at `freeze`, both
+    rollout kernels, the floor and the overlap terms), with the decoder
+    head
     damped x0.1, three times: on the card, on the CPU, and on the card
     with the 2D keypoints nudged by 1e-4 px. The L-BFGS path is chaotic
     even damped (a nudge parts it after ~14 iterations), so the histories
@@ -1250,7 +1293,7 @@ def compare_rgb_stage3(models, device="cuda", iters=(0, 0, RGB_ITERS[2])):
 
     from humor_torch.fitting import optimizer as O
 
-    cfg = rgb_config(iters)
+    cfg = rgb_config(iters, freeze=freeze)
     obs = make_rgb_observations(models, seed=0)
     nudged = dict(obs, joints2d=obs["joints2d"] + torch.tensor(
         [1e-4, 1e-4, 0.0]))
@@ -1589,15 +1632,16 @@ def train_batch(bodies, batch, seed, device):
             "gender_ids": meta["gender_ids"].long() % 2}
 
 
-def train_grads(params, bodies, batch, device, sched, eps):
-    """(loss, grad_norm, grads) of one step's loss on `device`."""
+def train_grads(params, bodies, batch, device, sched, eps, cfg=None):
+    """(loss, grad_norm, grads) of one step's loss on `device` (the
+    default HuMoR configuration unless `cfg` is given)."""
     import torch
 
     from humor_torch.losses.elbo import LossConfig
     from humor_torch.models import humor as H
     from humor_torch.train import step as TS
 
-    cfg = H.HumorConfig()
+    cfg = cfg or H.HumorConfig()
     to = lambda x: x.to(device)
     models = {k: v.to(device) for k, v in bodies.items()}
     params = TS.tree_map(lambda p: to(p).detach().requires_grad_(True),
@@ -2250,6 +2294,300 @@ def run_dataset_clis(models, device="cuda"):
     return launches
 
 
+# phase 10: the trained mini-HuMoR/VPoser fixture (humor_torch.testing) at
+# the JAX fixture's full budget on the card, then both accuracy fits of
+# tests/test_tto_accuracy.py (zoom search, the JAX test's shapes, budgets,
+# seeds) held to that test's bounds (testing.JOINTS3D_BOUNDS, RGB_BOUNDS),
+# the RGB fit's absolute-depth bounds (testing.RGB_DEPTH_BOUNDS) printed
+# beside their values, not held: the JAX package's own fit misses each of
+# them when its observation moves by under 2.5e-4 px (the readings are
+# beside RGB_DEPTH_BOUNDS).
+def _counting_motion_fit():
+    """Wrap energies.motion_fit (the stage-3 objective's energy) to count
+    its evaluations; returns (counter, restore)."""
+    from humor_torch.fitting import energies as E
+
+    real, calls = E.motion_fit, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+    E.motion_fit = counted
+    return calls, lambda: setattr(E, "motion_fit", real)
+
+
+def _accuracy_fit(name, fn, case, models, bounds, device, reported=()):
+    """One accuracy fit from zero launches: its metrics against `bounds`
+    (those named in `reported` printed, not held), both rollout kernels
+    launched, no nearest neighbour; the zoom search's probes an
+    iteration of stage 3 (evaluations less each phase's start point,
+    over the iterations)."""
+    from humor_torch import testing as TST
+    from humor_torch.fitting import optimizer as O
+
+    cfg = case(models)[0]
+    phases = [p for p in O.stage3_phases(cfg) if p[3] > 0]
+    calls, restore = _counting_motion_fit()
+    reset_launches()
+    try:
+        metrics, timings = fn(models, device)
+    finally:
+        restore()
+    launches = read_launches()
+    probes = (calls[0] - len(phases)) / sum(p[3] for p in phases)
+    missed = TST.misses(metrics, bounds)
+    failed = TST.misses(metrics, {k: b for k, b in bounds.items()
+                                  if k not in reported})
+    print(f"[accuracy {name}] " + json.dumps({
+        "metrics": metrics, "bounds": bounds, "missed": missed,
+        "reported_not_held": list(reported),
+        "stage_seconds": timings, "stage3_evaluations": calls[0],
+        "stage3_zoom_probes_per_iteration": probes,
+        "launches": launches}))
+    for k in ("rollout_fwd", "rollout_bwd"):
+        if launches[k] <= 0:
+            fail(f"the {name} accuracy fit never launched {k}")
+    if launches["nn_distance"]:
+        fail(f"the {name} accuracy fit launched the nearest neighbour")
+    if failed:
+        fail(f"the {name} accuracy fit missed the JAX test's bounds: "
+             f"{failed}")
+    return launches
+
+
+def run_accuracy(device="cuda"):
+    """Phase 10: train the fixture on the card (300 supervised and 150
+    scheduled-sampling steps at 48 x 10, 800 VPoser steps), print the
+    VPoser round trip on GT poses, then the joints3d and RGB accuracy
+    fits. Returns each fit's launches."""
+    import torch
+
+    from humor_torch import testing as TST
+    from humor_torch.body_model.smpl import synthetic_smpl_model
+    from humor_torch.fitting import optimizer as O
+    from humor_torch.models import humor as H
+    from humor_torch.train import step as TS
+
+    body = synthetic_smpl_model(device=device)
+    cfg = H.HumorConfig()
+    t0 = time.perf_counter()
+    humor = TST.train_mini_humor(body, cfg, device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vcfg, vparams = TST.train_mini_vposer(body, device=device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mae = TST.vposer_roundtrip_mae(vcfg, vparams,
+                                   TST.vposer_training_poses(body.to("cpu")))
+    finite = all(bool(torch.isfinite(p).all()) for tree in (humor, vparams)
+                 for p in TS.tree_leaves(tree))
+    print("[fixture] " + json.dumps({
+        "humor_train_seconds": t1 - t0, "vposer_train_seconds": t2 - t1,
+        "vposer_roundtrip_mae_rad": mae, "finite": finite}))
+    if not finite or not math.isfinite(mae):
+        fail("the trained fixture has non-finite weights or round trip")
+    models = O.TTOModels(body=body, vposer_cfg=vcfg, vposer=vparams,
+                         humor_cfg=cfg, humor=humor, init_gmm=None)
+    return {
+        "accuracy_joints3d": _accuracy_fit(
+            "joints3d", TST.joints3d_accuracy, TST.joints3d_case, models,
+            TST.JOINTS3D_BOUNDS, device),
+        "accuracy_rgb": _accuracy_fit(
+            "rgb", TST.rgb_accuracy, TST.rgb_case, models, TST.RGB_BOUNDS,
+            device, reported=TST.RGB_DEPTH_BOUNDS),
+    }
+
+
+# phase 11: the HuMoR configurations other than the default. Train steps
+# card against CPU at phase 8's size and tolerances, the train CLI at
+# --model-steps-in 2, and a short fit of an unconditional-prior,
+# absolute-output model card against CPU. The rollout kernels' layout is
+# the default configuration's (as JAX's Pallas kernel's), so these paths
+# launch none of the three kernels by design.
+CONFIG_TRAIN = {"steps_in2": dict(steps_in=2),
+                "in6d_out9d": dict(in_rot_rep="6d", out_rot_rep="9d")}
+CONFIG_FIT = dict(conditional_prior=False, output_delta=False)
+CONFIG_FIT_ITERS = (3, 3, 3)
+CONFIG_FIT_RTOL = 1e-4          # loss histories, card against CPU
+# final pose (rad), card against CPU: ~3x the gap measured on an NVIDIA
+# H100 80GB HBM3 (4.06e-5); the same fit with the deltas switched on
+# (CONFIG_FIT_CONTROL) must part from the CPU's by more, or the limit
+# would not tell a wrong configuration from the right one
+CONFIG_FIT_ATOL = 1.2e-4
+CONFIG_FIT_CONTROL = dict(conditional_prior=False, output_delta=True)
+
+
+def compare_config_steps(device="cuda", batch=TRAIN_CMP_B):
+    """Phase 11a: supervised and scheduled-sampling losses and gradients
+    of each CONFIG_TRAIN model on the card against the CPU (phase 8's
+    batch of windows, weights, draws and tolerances)."""
+    import torch
+
+    from humor_torch.data.synthetic import synthetic_world_batch
+    from humor_torch.data.windows import window_to_pairs_multi
+    from humor_torch.models import humor as H
+
+    bodies = train_bodies()
+    rec = {}
+    for name, kw in CONFIG_TRAIN.items():
+        cfg = H.HumorConfig(**kw)
+        S = cfg.steps_in
+        params = H.init_params(cfg, torch.Generator().manual_seed(3))
+        if S == 1:
+            data = train_batch(bodies, batch, seed=0, device="cpu")
+        else:
+            world, meta = synthetic_world_batch(0, batch, TRAIN_T + S,
+                                                model=bodies["male"])
+            din, dout = window_to_pairs_multi(world, S)
+            data = {"data_in": din, "data_out": dout, "betas": meta["betas"],
+                    "gender_ids": meta["gender_ids"].long() % 2}
+        g = torch.Generator().manual_seed(4)
+        eps = {False: torch.randn(batch * TRAIN_T, 48, generator=g),
+               True: torch.randn(TRAIN_T, batch, 48, generator=g)}
+        for sched in (False, True):
+            card = train_grads(params, bodies, data, device, sched,
+                               eps[sched], cfg)
+            cpu = train_grads(params, bodies, data, "cpu", sched, eps[sched],
+                              cfg)
+            scaled = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-30)) for a, b in zip(card[2], cpu[2]))
+            rec[f"{name}_{'sched_samp' if sched else 'supervised'}"] = {
+                "loss_card": card[0], "loss_cpu": cpu[0],
+                "loss_rel": abs(card[0] - cpu[0]) / abs(cpu[0]),
+                "grad_norm_rel": abs(card[1] - cpu[1]) / abs(cpu[1]),
+                "grad_max_scaled": scaled}
+    print("[configs train card vs cpu] " + json.dumps(rec))
+    for name, r in rec.items():
+        if not (r["loss_rel"] <= TRAIN_LOSS_RTOL
+                and r["grad_norm_rel"] <= TRAIN_LOSS_RTOL
+                and r["grad_max_scaled"] <= TRAIN_GRAD_TOL):
+            fail(f"{name} step on the card parts from the CPU: {r}")
+    return rec
+
+
+def run_steps_in_cli(device="cuda", batch=16, steps=4):
+    """Phase 11b: the train CLI for one epoch at --model-steps-in 2 on
+    the synthetic sequences (windows of sample_num_frames + 2 frames)."""
+    import tempfile
+
+    import numpy as np
+
+    from humor_torch.train import cli as TC
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        smplh = os.path.join(tmp, "smplh")
+        for gender, body in train_bodies().items():
+            write_body_npz(smplh, body, gender)
+        out = os.path.join(tmp, "train")
+        reset_launches()
+        t0 = time.perf_counter()
+        TC.main(["@" + os.path.join(root, "configs", "train_humor.cfg"),
+                 "--device", device, "--model-steps-in", "2",
+                 "--batch-size", str(batch), "--epochs", "1",
+                 "--steps-per-epoch", str(steps), "--val-every", "1",
+                 "--out", out, "--data-path", os.path.join(tmp, "no_amass"),
+                 "--smplh-root", smplh])
+        launches = read_launches()
+        with open(os.path.join(out, "stats.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        ok = (len(rows) == steps and os.path.exists(
+            os.path.join(out, "final_model.npz")) and np.isfinite(
+                [v for r in rows for v in r.values()]).all())
+        print("[configs train cli steps_in=2] " + json.dumps({
+            "seconds": time.perf_counter() - t0, "steps": len(rows),
+            "losses": [r["total_loss"] for r in rows],
+            "launches": launches}))
+        if not ok:
+            fail("the train CLI at --model-steps-in 2 logged the wrong "
+                 "number of steps, non-finite stats or no checkpoint")
+    return launches
+
+
+def run_config_fit(models, device="cuda", iters=CONFIG_FIT_ITERS):
+    """Phase 11c: the joints3d fit (phase 3's observation and weights) of
+    an unconditional-prior, absolute-output model (seeded, its decoder
+    head damped x0.1) on the card, on the CPU, on the card with the
+    observation nudged 1e-6 m and on the card as CONFIG_FIT_CONTROL
+    (the same weights read as deltas): every loss history card against
+    CPU within CONFIG_FIT_RTOL, the final pose within CONFIG_FIT_ATOL of
+    the CPU's and the control's farther than that (the nudged run's gap
+    printed beside them: the damped chain is well-conditioned), and no
+    kernel launched (the typed rollout, by design)."""
+    import torch
+
+    from humor_torch.fitting import energies as E
+    from humor_torch.fitting import optimizer as O
+    from humor_torch.models import humor as H
+
+    cfg = H.HumorConfig(**CONFIG_FIT)
+    m = models._replace(humor_cfg=cfg, humor=damped(H.init_params(
+        cfg, torch.Generator().manual_seed(5)), 0.1))
+    control = m._replace(humor_cfg=H.HumorConfig(**CONFIG_FIT_CONTROL))
+    w1 = E.StageWeights(joints3d=1.0)
+    w2 = E.StageWeights(joints3d=1.0, pose_prior=2e-4, shape_prior=1.67e-4,
+                        joints3d_smooth=10.0)
+    w3 = E.StageWeights(joints3d=1.0, shape_prior=1.67e-4, motion_prior=1e-3,
+                        joint_consistency=1.0, bone_length=10.0,
+                        contact_vel=1.0, contact_height=1.0)
+    tcfg = O.TTOConfig(seq_len=T, stage_weights=(w1, w2, w3),
+                       num_iters=iters, stage3_freeze_start=1,
+                       stage3_freeze_end=2)
+    obs = make_observations(models, seed=0)
+    runs = {}
+    launches = None
+    for name, mm, dev, nudge in (("card", m, device, 0.0),
+                                 ("cpu", m, "cpu", 0.0),
+                                 ("nudged", m, device, 1e-6),
+                                 ("control", control, device, 0.0)):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = O.make_runner(tcfg, mm, device=dev)(
+            {"joints3d": obs["joints3d"] + nudge})
+        runs[name] = (res, time.perf_counter() - t0)
+        if name == "card":
+            launches = read_launches()
+    card, cpu, nudged, ctrl = (runs[k][0] for k in ("card", "cpu", "nudged",
+                                                     "control"))
+    hist = max(float(((card.losses[k].cpu() - cpu.losses[k]).abs()
+                      / cpu.losses[k].abs()).max()) for k in card.losses)
+    gap = lambda a, b: float((a.final["pose_body"].cpu()
+                              - b.final["pose_body"].cpu()).abs().max())
+    finite = all(bool(torch.isfinite(v).all()) for v in (
+        *card.losses.values(), card.final["trans"], card.final["pose_body"]))
+    rec = {"config": CONFIG_FIT, "iters": list(iters),
+           "seconds": {k: v[1] for k, v in runs.items()},
+           "history_rel": hist, "pose_gap_cpu": gap(card, cpu),
+           "pose_gap_nudged": gap(card, nudged),
+           "pose_gap_control": gap(ctrl, cpu),
+           "contacts": "contacts" in card.final, "finite": finite,
+           "launches": launches}
+    print("[configs fit card vs cpu] " + json.dumps(rec))
+    if not finite:
+        fail("the non-default fit on the card gave non-finite values")
+    if hist > CONFIG_FIT_RTOL:
+        fail(f"the non-default fit's histories part card from CPU: {hist}")
+    if rec["pose_gap_cpu"] > CONFIG_FIT_ATOL:
+        fail(f"the non-default fit's final pose parts card from CPU: {rec}")
+    if not rec["pose_gap_control"] > CONFIG_FIT_ATOL:
+        fail(f"a wrong configuration's fit passes CONFIG_FIT_ATOL: {rec}")
+    if any(launches.values()):
+        fail(f"the non-default fit launched a kernel: {launches}")
+    return launches
+
+
+def run_configs(models, device="cuda"):
+    """Phase 11; returns the launches of its CLI and fit (none)."""
+    t0 = time.perf_counter()
+    compare_config_steps(device)
+    launches = {"configs_train_cli": run_steps_in_cli(device),
+                "configs_fit": run_config_fit(models, device)}
+    if any(launches["configs_train_cli"].values()):
+        fail("the train CLI at --model-steps-in 2 launched a kernel")
+    print("[phase 11] " + json.dumps({"seconds": time.perf_counter() - t0}))
+    return launches
+
+
 def run_fit(models):
     import torch
 
@@ -2295,7 +2633,55 @@ def run_fit(models):
     return launches
 
 
-def main():
+def phase_runners(models):
+    """Phases 3-11 by name, in order: each returns its paths' launches,
+    every path counted from zero."""
+    def rgb():
+        out = {"rgb_fit": run_rgb_fit(models)}
+        compare_rgb_stage3(models)
+        return out
+
+    def training():
+        compare_train_steps()
+        time_train_steps()
+        return run_training(models)
+
+    return {
+        "3": lambda: {"joints3d_fit": run_fit(models)},
+        "4-5": lambda: {"prox_fit": run_prox_fit(models)},
+        "6": rgb,
+        # the CLIs
+        "7": lambda: run_clis(models),
+        "8": training,
+        # the AMASS fits, the GMM, evaluation and preprocessing
+        "9": lambda: run_dataset_clis(models),
+        # the trained fixture and the accuracy fits
+        "10": run_accuracy,
+        # the other HuMoR configurations: typed rollout, no kernel, by
+        # design (the kernels' layout is the default configuration's)
+        "11": lambda: run_configs(models),
+    }
+
+
+PHASES = ("3", "4-5", "6", "7", "8", "9", "10", "11")
+
+
+def card_line():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    ap.add_argument("--phases", nargs="+", choices=PHASES,
+                    help="run only these phases after the build; prints "
+                         "no kernels' line and no result line")
+    args = ap.parse_args(argv)
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2316,8 +2702,26 @@ def main():
                              force=True)
     print("[build] " + json.dumps({"seconds": time.perf_counter() - t0,
                                    "per_library": built}))
+    seconds = {"1": time.perf_counter() - t0}
+
+    def run_phases(names):
+        runners = phase_runners(make_models())
+        by_path = {}
+        for name in names:
+            start = time.perf_counter()
+            by_path.update(runners[name]())
+            seconds[name] = time.perf_counter() - start
+        print("[phase seconds] " + json.dumps(seconds))
+        return by_path
+
+    if args.phases:
+        by_path = run_phases([p for p in PHASES if p in args.phases])
+        print(json.dumps({"launches_by_path": by_path}))
+        print(card_line())
+        return
 
     # 2. kernels against their plain versions
+    t2 = time.perf_counter()
     g = torch.Generator().manual_seed(1)
     params = H.init_params(H.HumorConfig(), g)
     weights = RK.RolloutWeights(params, dev)
@@ -2343,21 +2747,11 @@ def main():
                                         "T": T_ROLL, "ms": bwd_ms_128}))
     del damped_weights
     nn_err, nn_rec = check_nn()
+    seconds["2"] = time.perf_counter() - t2
 
-    # 3.-6. the fits, each counted from zero
-    models = make_models()
-    by_path = {"joints3d_fit": run_fit(models),
-               "prox_fit": run_prox_fit(models),
-               "rgb_fit": run_rgb_fit(models)}
-    compare_rgb_stage3(models)
-    # 7. the CLIs
-    by_path.update(run_clis(models))
-    # 8. training
-    train_cmp = compare_train_steps()
-    train_steps = time_train_steps()
-    by_path.update(run_training(models))
-    # 9. the AMASS fits, the GMM, evaluation and preprocessing
-    by_path.update(run_dataset_clis(models))
+    # 3.-11. the fits, the CLIs, training, the dataset CLIs, the trained
+    # fixture and the other configurations, each path counted from zero
+    by_path = run_phases(PHASES)
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in by_path["prox_fit"]}
 
@@ -2401,12 +2795,7 @@ def main():
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

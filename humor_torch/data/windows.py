@@ -56,6 +56,26 @@ def window_to_pairs(world: Dict[str, torch.Tensor]
             apply_world2local(_frames(frames, slice(0, 1)), nxt))
 
 
+def window_to_pairs_multi(world: Dict[str, torch.Tensor], steps_in: int
+                          ) -> Tuple[Dict[str, torch.Tensor],
+                                     Dict[str, torch.Tensor]]:
+    """Pairs with an S-frame past (steps_in = S): world components (...,
+    F, D) -> (data_in (..., T, S, D): frames i..i+S-1 in frame i+S-1's
+    heading frame, data_out (..., T, D): frame i+S in the same frame),
+    T = F - S."""
+    frames = step_frames(world, window_trans2joint(world))
+    S, F = steps_in, world["trans"].shape[-2]
+    T = F - S
+    anchor = _frames(frames, slice(S - 1, F - 1))
+    win = {k: torch.stack([v[..., s: s + T, :] for s in range(S)], dim=-2)
+           for k, v in world.items()}
+    nxt = {k: v[..., S:, :] for k, v in world.items()}
+    anchor_w = FrameTransform(anchor.rot[..., :, None, :, :],
+                              anchor.trans[..., :, None, :],
+                              anchor.trans2joint[..., :, None, :])
+    return apply_world2local(anchor_w, win), apply_world2local(anchor, nxt)
+
+
 def window_to_global(world: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """All frames canonicalized into frame 0's heading frame."""

@@ -18,7 +18,9 @@ pose latent space (stages 1-2) and HuMoR's motion latent space (stage 3):
     smoothness; the floor plane stays frozen;
   * stage 3: the initial state, the latent motion and the floor plane;
     every evaluation rolls the frozen HuMoR CVAE out over the window
-    through the fused rollout kernels (ops/rollout_kernel.py), in three
+    through the fused rollout kernels (ops/rollout_kernel.py; a HuMoR
+    configuration other than the default rolls out through the typed
+    models.humor.rollout, as the kernels cover the default only), in three
     sub-phases (tune the initial state on the first frames without the
     overlap terms, freeze it, refine all). With `optim_floor` the rollout
     runs in the prior frame that the floor and the first frame define
@@ -280,18 +282,29 @@ def _key_frames(B: int, device) -> torch.Tensor:
     return torch.zeros(B, dtype=torch.long, device=device)
 
 
-def rollout_latent_motion(models: TTOModels, weights: RK.RolloutWeights,
+def uses_rollout_kernels(cfg: H.HumorConfig) -> bool:
+    """The rollout kernels' fixed layout is the default configuration's
+    (as the JAX package's Pallas kernel's); any other rolls out through
+    the typed models.humor.rollout."""
+    return replace(cfg, detach_sched_samp=True) == H.HumorConfig()
+
+
+def rollout_latent_motion(models: TTOModels,
+                          weights: Optional[RK.RolloutWeights],
                           variables: Dict[str, torch.Tensor],
                           latent_motion: torch.Tensor,
                           cam2prior: Optional[Tuple] = None
                           ) -> Tuple[Dict, Dict]:
     """Roll the initial-state variables (B, 1, .) forward through HuMoR
-    with the latents (B, T-1, 48), canonicalizing the first input and
-    returning the trajectory in the input frame, through the fused
-    rollout kernels. With `cam2prior` (R, t, root height) the variables
-    are camera-frame and the rollout runs in the prior frame. Returns
-    (prior-frame dict, camera-frame trans/root_orient/pose_body), the
-    same frame when cam2prior is None."""
+    with the latents (B, T-1, latent), canonicalizing the first input and
+    returning the trajectory in the input frame: through the fused
+    rollout kernels with `weights`, through the typed rollout when
+    `weights` is None (a configuration other than the default; steps_in
+    > 1 raises there, as in the JAX package). With `cam2prior` (R, t,
+    root height) the variables are camera-frame and the rollout runs in
+    the prior frame. Returns (prior-frame dict, camera-frame
+    trans/root_orient/pose_body), the same frame when cam2prior is
+    None."""
     B = variables["trans"].shape[0]
     Tm1 = latent_motion.shape[1]
     body_pose0 = vp.latent2pose(models.vposer_cfg, models.vposer,
@@ -318,7 +331,13 @@ def rollout_latent_motion(models: TTOModels, weights: RK.RolloutWeights,
         "joints": joints0[:, 0].reshape(B, -1),
         "joints_vel": variables["joints_vel"][:, 0].reshape(B, -1),
     }
-    w, prior = RK.rollout(weights, init_state, latent_motion)
+    if weights is not None:
+        w, prior = RK.rollout(weights, init_state, latent_motion)
+    else:
+        roll = H.rollout(models.humor_cfg, models.humor, init_state, Tm1,
+                         z_seq=latent_motion, canonicalize_input=True,
+                         uncanonicalize_output=True)
+        w, prior = roll.world, roll.prior
     root_mats = w["root_orient"].reshape(B, Tm1, 3, 3)
     pose_mats = w["pose_body"].reshape(B, Tm1, -1, 3, 3)
     out = {
@@ -332,7 +351,9 @@ def rollout_latent_motion(models: TTOModels, weights: RK.RolloutWeights,
                             dim=1),
         "cond_prior": prior,
     }
-    out["contacts_conf"], out["contacts"] = _expand_contacts(w["contacts"])
+    if "contacts" in w:
+        out["contacts_conf"], out["contacts"] = _expand_contacts(
+            w["contacts"])
     if cam2prior is not None:
         cam = geo.apply_cam2prior(out["trans"], out["root_orient"], R, t, rh,
                                   keys, inverse=True)
@@ -431,17 +452,20 @@ def tile_observations(observed: Dict[str, Any], K: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 class FitModels(NamedTuple):
-    """Models on one device, with the rollout kernels' weight layout and
-    the GMM's Cholesky terms made once."""
+    """Models on one device, with the rollout kernels' weight layout (None
+    for a configuration the kernels do not cover) and the GMM's Cholesky
+    terms made once."""
     models: TTOModels
-    rollout_weights: RK.RolloutWeights
+    rollout_weights: Optional[RK.RolloutWeights]
     gmm_terms: Optional[Tuple]
 
 
 def prepare_models(models: TTOModels, device) -> FitModels:
     models = models_to(models, device)
     gmm = models.init_gmm
-    return FitModels(models, RK.RolloutWeights(models.humor, device),
+    weights = (RK.RolloutWeights(models.humor, device)
+               if uses_rollout_kernels(models.humor_cfg) else None)
+    return FitModels(models, weights,
                      gmm_lib.chol_terms(gmm) if gmm is not None else None)
 
 
@@ -563,7 +587,8 @@ def stage3_objective(fm: FitModels, weights3: E.StageWeights, nsteps: int,
         for k in ("joints_vel", "trans_vel", "root_orient_vel"):
             pred[k] = v[k]
         pred["joints3d_rollout"] = prior_out["joints"]
-        pred["contacts_conf"] = prior_out["contacts_conf"]
+        if "contacts_conf" in prior_out:
+            pred["contacts_conf"] = prior_out["contacts_conf"]
         if optim_floor:
             # The camera-frame prediction is an exact rigid map of the
             # prior-frame one: SMPL turns the body about the shaped rest
@@ -584,7 +609,9 @@ def stage3_objective(fm: FitModels, weights3: E.StageWeights, nsteps: int,
             cam_pred = pred
         return E.motion_fit(energy, weights3, slice_observations(obs, nsteps),
                             pred, cam_pred, nsteps, gmm=m.init_gmm,
-                            cond_prior=prior_out["cond_prior"],
+                            cond_prior=(prior_out["cond_prior"]
+                                        if m.humor_cfg.conditional_prior
+                                        else None),
                             init_motion_scale=scale, gmm_terms=fm.gmm_terms)
     return loss
 
@@ -745,8 +772,9 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
                 "prior_trans": prior_out["trans"],
                 "prior_root_orient": prior_out["root_orient"],
                 "joints3d_rollout": prior_out["joints"],
-                "contacts": prior_out["contacts"],
             }
+            if "contacts" in prior_out:
+                final["contacts"] = prior_out["contacts"]
             if cfg.optim_floor:
                 final["floor_plane"] = geo.parse_floor_plane(
                     s3["floor_plane"])

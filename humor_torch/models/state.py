@@ -22,6 +22,8 @@ from humor_torch.body_model.constants import (
 )
 
 ROT_REP_SIZE = {"aa": 3, "6d": 6, "mat": 9, "9d": 9}
+IN_ROT_REPS = ("aa", "6d", "mat")
+OUT_ROT_REPS = ("aa", "6d", "9d")
 
 
 class Kind(enum.Enum):

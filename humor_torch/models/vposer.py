@@ -1,6 +1,8 @@
-"""VPoser body-pose prior (VAE over SMPL body poses), inference only
-(port of humor_tpu/models/vposer.py; public VPoser v1.0 architecture:
-512 hidden, 32-d latent, 21 joints, eval-mode BatchNorm).
+"""VPoser body-pose prior (VAE over SMPL body poses) (port of
+humor_tpu/models/vposer.py; public VPoser v1.0 architecture: 512 hidden,
+32-d latent, 21 joints, eval-mode BatchNorm). `train_loss` is the
+autoencoding loss the in-repo fixture trains on (humor_torch.testing),
+through the same eval-mode functions, as the JAX package does.
 
     encode(aa 63) : BN -> Linear(63,512) -> LeakyReLU(.2) -> BN ->
                     Linear(512,512) -> LeakyReLU(.2) -> {mu, softplus(sigma)}
@@ -11,7 +13,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -108,3 +110,27 @@ def pose2latent(cfg: VPoserConfig, params: Dict, pose_aa: torch.Tensor
                 ) -> torch.Tensor:
     """aa body pose (..., J*3) -> posterior mean latent (..., latent)."""
     return encode(cfg, params, pose_aa)[0]
+
+
+def sample_poses(cfg: VPoserConfig, params: Dict, num: int,
+                 z: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """aa body poses (num, J*3) decoded from standard-normal latents `z`
+    (num, latent), else drawn from `generator` (on its device)."""
+    if z is None:
+        z = torch.randn(num, cfg.latent_dim, generator=generator,
+                        device=generator.device if generator is not None
+                        else "cpu")
+    dev = params["dec_fc1"]["w"].device
+    return latent2pose(cfg, params, z.to(dev))
+
+
+def train_loss(cfg: VPoserConfig, params: Dict, pose_aa: torch.Tensor
+               ) -> torch.Tensor:
+    """Autoencoding loss on aa poses (N, J*3): the reconstruction MSE of
+    the posterior mean plus 1e-3 x the KL term written as the JAX fixture
+    writes it, 0.5 mean(mu^2 + std^2 - 2 log(std + 1e-8) - 1)."""
+    mu, std = encode(cfg, params, pose_aa)
+    rec = latent2pose(cfg, params, mu)
+    kl = 0.5 * torch.mean(mu ** 2 + std ** 2 - 2 * torch.log(std + 1e-8) - 1)
+    return torch.mean(torch.square(rec - pose_aa)) + 1e-3 * kl

@@ -54,6 +54,19 @@ def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
     return R.reshape(*batch_shape, 3, 3)
 
 
+def rot9d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
+    """9d rep (..., 9) -> the closest rotation (..., 3, 3) by SVD
+    projection, U diag(1, 1, det(U V^T)) V^T (independent of the SVD's
+    sign choices; its gradient is unstable near repeated singular
+    values)."""
+    batch_shape = x.shape[:-1]
+    u, _, vt = torch.linalg.svd(x.reshape(-1, 3, 3), full_matrices=False)
+    det = torch.linalg.det(u @ vt)
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    R = (u * d[:, None, :]) @ vt
+    return R.reshape(*batch_shape, 3, 3)
+
+
 def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrices (..., 3, 3) -> quaternions (..., 4), (w, x, y, z),
     by the branchless 4-case selection of the JAX module."""
@@ -107,9 +120,51 @@ def quat_to_aa(q: torch.Tensor) -> torch.Tensor:
     return qvec * k[..., None]
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) wxyz -> rotation matrices (..., 3, 3)."""
+    q = q / _norm_safe(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    ww, xx, yy, zz = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    R = torch.stack([
+        ww + xx - yy - zz, 2 * (xy - wz), 2 * (wy + xz),
+        2 * (wz + xy), ww - xx + yy - zz, 2 * (yz - wx),
+        2 * (xz - wy), 2 * (wx + yz), ww - xx - yy + zz], dim=-1)
+    return R.reshape(*q.shape[:-1], 3, 3)
+
+
 def rotmat_to_aa(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrices (..., 3, 3) -> angle-axis (..., 3)."""
     return quat_to_aa(rotmat_to_quat(R))
+
+
+def rotmat_to_rot6d(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6): the first two columns, row-major of the
+    (3, 2) view (rot6d_to_rotmat's layout)."""
+    return R[..., :, :2].reshape(*R.shape[:-2], 6)
+
+
+_REP_SIZE = {"aa": 3, "6d": 6, "9d": 9, "mat": 9}
+
+
+def convert_to_rotmat(x: torch.Tensor, rep: str) -> torch.Tensor:
+    """Packed rotations (..., N * size(rep)) -> (..., N * 9)."""
+    if rep not in _REP_SIZE:
+        raise ValueError(f"unknown rotation rep {rep!r}")
+    rs = _REP_SIZE[rep]
+    batch_shape = x.shape[:-1]
+    n = x.shape[-1] // rs
+    flat = x.reshape(-1, rs)
+    if rep == "aa":
+        R = aa_to_rotmat(flat)
+    elif rep == "6d":
+        R = rot6d_to_rotmat(flat)
+    elif rep == "9d":
+        R = rot9d_to_rotmat(flat)
+    else:
+        R = flat.reshape(-1, 3, 3)
+    return R.reshape(*batch_shape, n * 9)
 
 
 def rotmat_multiply(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -77,7 +77,8 @@ def load_body_models(smplh_root: str, device="cpu") -> Dict:
 def make_batch_fns(dataset, cfg, window_frames: int, steps: int, seed: int,
                    device, budget_bytes: Optional[int] = None):
     """-> (batches(epoch), store): a generator factory of `steps`
-    training batches an epoch (batch i of an epoch from seed seed +
+    training batches an epoch (pairs with a cfg.model_steps_in-frame past:
+    data.windows.window_to_pairs_multi when that is over 1) (batch i of an epoch from seed seed +
     epoch * 100003 + i), and the device store it gathers from (None on
     the host path).
 
@@ -86,8 +87,12 @@ def make_batch_fns(dataset, cfg, window_frames: int, steps: int, seed: int,
     are gathered on the host and copied. Both give the same values at
     noise_std 0 (tests/test_torch_train_data.py)."""
     from humor_torch.data.device_store import TRAIN_COLUMNS, maybe_stage
-    from humor_torch.data.windows import window_to_pairs
+    from humor_torch.data.windows import (window_to_pairs,
+                                          window_to_pairs_multi)
 
+    S = cfg.model_steps_in
+    to_pairs = ((lambda w: window_to_pairs(w)[:2]) if S == 1
+                else (lambda w: window_to_pairs_multi(w, S)))
     store = maybe_stage(dataset, device, cfg.data_on_device,
                         budget_bytes=budget_bytes)
 
@@ -108,7 +113,7 @@ def make_batch_fns(dataset, cfg, window_frames: int, steps: int, seed: int,
                         "gender_ids": torch.as_tensor(
                             meta_np["gender_ids"].astype(np.int64) % 2)
                         .to(device)}
-            data_in, data_out, _ = window_to_pairs(world)
+            data_in, data_out = to_pairs(world)
             yield {"data_in": data_in, "data_out": data_out,
                    "betas": meta["betas"], "gender_ids": meta["gender_ids"]}
 
@@ -158,7 +163,8 @@ def main(argv=None) -> Dict[str, float]:
                              default_names=A.TRAIN_DATASETS, device=dev)
     val_ds = build_dataset(cfg, cfg.val_datasets, fallback_seed=1,
                            default_names=A.VAL_DATASETS, device=dev)
-    window = cfg.sample_num_frames + 1
+    # sample_num_frames transitions after a steps_in-frame past
+    window = cfg.sample_num_frames + cfg.model_steps_in
     # HuMoR-Qual needs the bodies even with the SMPL losses off
     smpl_models = (load_body_models(cfg.smplh_root, dev)
                    if cfg.use_smpl_losses or cfg.model_use_smpl_joint_inputs

@@ -5,10 +5,11 @@ The supervised phase flattens (B, T) transitions into one batch of B*T
 rows; the scheduled-sampling phase is models.humor.scheduled_sampling.
 Gradients come from torch.autograd over the params pytree (leaves with
 requires_grad). The optimizer is optax's
-apply_if_finite(chain([clip_by_global_norm], adamax(piecewise_constant)))
-written in torch as optax 0.2.6 computes it: a step with a non-finite
-gradient leaves params, moments and the schedule's count unchanged, and
-the schedule's milestones count applied steps.
+apply_if_finite(chain([clip_by_global_norm], adamax or
+adam(piecewise_constant))) written in torch as optax 0.2.6 computes it:
+a step with a non-finite gradient leaves params, moments and the
+schedule's count unchanged, and the schedule's milestones count applied
+steps.
 """
 
 from __future__ import annotations
@@ -48,19 +49,14 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 
 @dataclass(frozen=True)
-class Adamax:
-    """optax.adamax(piecewise_constant_schedule(lr, {m*spe: d})) behind
-    clip_by_global_norm(grad_clip) (when set) and apply_if_finite.
-
-        mu  = (1 - b1) g + b1 mu
-        nu  = max(|g| + eps, b2 nu)
-        p  -= lr(count) * (mu / (1 - b1^(count+1))) / nu
-
-    (optax 0.2.6 adds eps inside the max, as torch.optim.Adamax does; the
-    two differ in where the bias correction and the rate are applied.)
-    State: {"count", "notfinite_count", "total_notfinite", "last_finite",
-    "mu", "nu"}; all on the params' device, so a step never waits for the
-    host."""
+class _Optimizer:
+    """optax's base(piecewise_constant_schedule(lr, {m*spe: d})) behind
+    clip_by_global_norm(grad_clip) (when set) and apply_if_finite; the
+    subclass gives the moments and the direction. State: {"count",
+    "notfinite_count", "total_notfinite", "last_finite", "mu", "nu"}; all
+    on the params' device, so a step never waits for the host. The bias
+    corrections and the rate are in the params' dtype (float32 as in the
+    JAX package; float64 as optax computes under x64)."""
 
     lr: float = 1e-4
     boundaries: Tuple[Tuple[int, float], ...] = ()
@@ -78,12 +74,17 @@ class Adamax:
                 "last_finite": torch.ones((), dtype=torch.bool, device=dev),
                 "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
-    def learning_rate(self, count: torch.Tensor) -> torch.Tensor:
-        """piecewise_constant_schedule at `count`, in float32."""
-        v = torch.tensor(self.lr, dtype=torch.float32, device=count.device)
+    def learning_rate(self, count: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+        """piecewise_constant_schedule at `count`."""
+        v = torch.tensor(self.lr, dtype=dtype, device=count.device)
         for boundary, scale in sorted(self.boundaries):
             v = torch.where(count >= boundary, v * scale, v)
         return v
+
+    def _step(self, g, mu, nu, count_inc, dtype):
+        """-> (new mu, new nu, the direction the rate scales)."""
+        raise NotImplementedError
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
@@ -101,15 +102,14 @@ class Adamax:
                                  (g / g_norm) * self.grad_clip)
                      for g in grads]
         count = state["count"]
-        step_size = -self.learning_rate(count)
+        dtype = leaves[0].dtype
+        step_size = -self.learning_rate(count, dtype)
         count_inc = count + 1
-        bias = 1.0 - torch.tensor(self.b1, dtype=torch.float32,
-                                  device=count.device) ** count_inc
         mus, nus = tree_leaves(state["mu"]), tree_leaves(state["nu"])
         for p, g, mu, nu in zip(leaves, grads, mus, nus):
-            mu_new = (1.0 - self.b1) * g + self.b1 * mu
-            nu_new = torch.maximum(torch.abs(g) + self.eps, self.b2 * nu)
-            upd = step_size * ((mu_new / bias) / nu_new)
+            mu_new, nu_new, direction = self._step(g, mu, nu, count_inc,
+                                                   dtype)
+            upd = step_size * direction
             p.copy_(torch.where(ok, p + upd, p))
             mu.copy_(torch.where(ok, mu_new, mu))
             nu.copy_(torch.where(ok, nu_new, nu))
@@ -120,13 +120,58 @@ class Adamax:
                     state["total_notfinite"] + 1)}
 
 
+def _bias(decay: float, count_inc: torch.Tensor, dtype) -> torch.Tensor:
+    """optax's bias correction 1 - decay^count."""
+    return 1.0 - torch.tensor(decay, dtype=dtype,
+                              device=count_inc.device) ** count_inc
+
+
+class Adamax(_Optimizer):
+    """optax.adamax:
+
+        mu  = (1 - b1) g + b1 mu
+        nu  = max(|g| + eps, b2 nu)
+        p  -= lr(count) * (mu / (1 - b1^(count+1))) / nu
+
+    (optax 0.2.6 adds eps inside the max, as torch.optim.Adamax does; the
+    two differ in where the bias correction and the rate are applied.)"""
+
+    def _step(self, g, mu, nu, count_inc, dtype):
+        mu_new = (1.0 - self.b1) * g + self.b1 * mu
+        nu_new = torch.maximum(torch.abs(g) + self.eps, self.b2 * nu)
+        return mu_new, nu_new, (mu_new / _bias(self.b1, count_inc, dtype)) \
+            / nu_new
+
+
+class Adam(_Optimizer):
+    """optax.adam (eps_root 0):
+
+        mu  = (1 - b1) g + b1 mu
+        nu  = (1 - b2) g^2 + b2 nu
+        p  -= lr(count) * mu_hat / (sqrt(nu_hat) + eps)
+
+    with mu_hat = mu / (1 - b1^(count+1)), nu_hat = nu / (1 - b2^(count+1))
+    (eps outside the root)."""
+
+    def _step(self, g, mu, nu, count_inc, dtype):
+        mu_new = (1.0 - self.b1) * g + self.b1 * mu
+        nu_new = (1.0 - self.b2) * g ** 2 + self.b2 * nu
+        mu_hat = mu_new / _bias(self.b1, count_inc, dtype)
+        nu_hat = nu_new / _bias(self.b2, count_inc, dtype)
+        return mu_new, nu_new, mu_hat / (torch.sqrt(nu_hat) + self.eps)
+
+
+_OPTIMIZERS = {"adamax": Adamax, "adam": Adam}
+
+
 def make_optimizer(lr: float = 1e-4, milestones=(50, 80, 140),
                    decays=(0.5, 0.2, 0.4), steps_per_epoch: int = 1,
-                   grad_clip: Optional[float] = None) -> Adamax:
-    """Adamax with the reference's MultiStepLR as a step schedule: the
-    rate is scaled by decays[i] from milestones[i] * steps_per_epoch
-    applied steps on."""
-    return Adamax(lr=lr, grad_clip=grad_clip, boundaries=tuple(
+                   optim: str = "adamax",
+                   grad_clip: Optional[float] = None) -> _Optimizer:
+    """Adamax (or Adam, `optim="adam"`) with the reference's MultiStepLR
+    as a step schedule: the rate is scaled by decays[i] from
+    milestones[i] * steps_per_epoch applied steps on."""
+    return _OPTIMIZERS[optim](lr=lr, grad_clip=grad_clip, boundaries=tuple(
         (int(m) * steps_per_epoch, float(d))
         for m, d in zip(milestones, decays)))
 
@@ -137,13 +182,13 @@ class TrainState(NamedTuple):
     step: int
 
 
-def init_train_state(cfg: H.HumorConfig, opt: Adamax,
+def init_train_state(cfg: H.HumorConfig, opt: _Optimizer,
                      generator: torch.Generator, device="cpu") -> TrainState:
     params = H.init_params(cfg, generator, device=device)
     return make_train_state(params, opt)
 
 
-def make_train_state(params: Any, opt: Adamax) -> TrainState:
+def make_train_state(params: Any, opt: _Optimizer) -> TrainState:
     """Take `params` (a float32 pytree) as the trained leaves."""
     params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
                       params)
@@ -151,12 +196,19 @@ def make_train_state(params: Any, opt: Adamax) -> TrainState:
 
 
 def _flatten_supervised(cfg: H.HumorConfig, batch: Dict) -> Tuple:
-    """(B, T, D) typed dicts -> flat (B*T, ...) inputs, gt, gender, betas."""
+    """(B, T, D) typed dicts -> flat (B*T, ...) inputs, gt, gender, betas.
+    At steps_in = S > 1 the data_in components are (B, T, S, D) windows
+    (data.windows.window_to_pairs_multi)."""
     data_in, data_out = batch["data_in"], batch["data_out"]
     B, T = data_in["trans"].shape[:2]
-    flat_in = {k: v.reshape(B * T, -1) for k, v in data_in.items()}
     flat_out = {k: v.reshape(B * T, -1) for k, v in data_out.items()}
-    return (H.state_to_input(cfg, flat_in), H.state_to_input(cfg, flat_out),
+    if cfg.steps_in == 1:
+        past = H.state_to_input(
+            cfg, {k: v.reshape(B * T, -1) for k, v in data_in.items()})
+    else:
+        past = H.state_to_input_window(cfg, {
+            k: v.reshape(B * T, cfg.steps_in, -1) for k, v in data_in.items()})
+    return (past, H.state_to_input(cfg, flat_out),
             flat_out, batch["gender_ids"].repeat_interleave(T),
             batch["betas"].repeat_interleave(T, dim=0))
 
@@ -196,8 +248,10 @@ def sched_samp_loss_fn(cfg: H.HumorConfig, loss_cfg: LossConfig,
         joint_fn = (make_rollout_joint_fn(smpl_models, batch["gender_ids"],
                                           batch["betas"])
                     if use_smpl_joint_inputs else None)
+        x_past = (H.state_to_input(cfg, data_in) if cfg.steps_in == 1
+                  else H.state_to_input_window(cfg, data_in))
         out = H.scheduled_sampling(
-            cfg, params, H.state_to_input(cfg, data_in),
+            cfg, params, x_past,
             H.state_to_input(cfg, data_out),
             {k: v[:, 0] for k, v in data_in.items()}, use_gt_p,
             smpl_joint_fn=joint_fn, use_gt=use_gt, eps=eps,
@@ -215,7 +269,8 @@ def sched_samp_loss_fn(cfg: H.HumorConfig, loss_cfg: LossConfig,
     return fn
 
 
-def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig, opt: Adamax,
+def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
+                     opt: _Optimizer,
                      smpl_models: Optional[Dict] = None,
                      use_smpl_joint_inputs: bool = False):
     """(supervised_step, sched_samp_step, eval_step).

@@ -153,10 +153,6 @@ class TrainCLIConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.model_steps_in != 1:
-            raise NotImplementedError(
-                f"--model-steps-in {self.model_steps_in}: humor_torch "
-                "trains steps_in=1 only (ROADMAP A7)")
         if self.model_compute_dtype:
             raise NotImplementedError(
                 f"--model-compute-dtype {self.model_compute_dtype!r}: "

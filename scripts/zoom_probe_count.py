@@ -14,11 +14,16 @@ the point it returns. Prints the counts, the probes an iteration of each
 package, both stage-3 histories and both evaluation sequences.
 
     JAX_PLATFORMS=cpu python3 scripts/zoom_probe_count.py \
-        [--iters 10 10 4] [--damp 1.0]
+        [--iters 10 10 4] [--damp 1.0] [--trained NPZ]
 
 `--damp` scales the HuMoR decoder's output layer (chip_smoke.damped), 0.1
-making the 59-step rollout well-conditioned. Takes a few minutes and a few
-GB on the CPU (the JAX runner's compile).
+making the 59-step rollout well-conditioned. `--trained NPZ` takes the
+trained mini-HuMoR/VPoser fixture instead (the JAX package's
+trained_tto_models(cache=NPZ), trained and written there if absent, read
+into the port through its checkpoint reader) and the RGB accuracy fit's
+observation and weights (humor_torch.testing.rgb_case: two windows of 10
+frames of the 256-vertex synthetic body). Takes a few minutes and a few
+GB on the CPU (the JAX runner's compile; the fixture's training ~2 min).
 """
 
 import argparse
@@ -36,7 +41,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, nargs=3, default=(10, 10, 4))
     ap.add_argument("--damp", type=float, default=1.0)
+    ap.add_argument("--trained", metavar="NPZ", default=None)
     args = ap.parse_args()
+    if args.trained and args.damp != 1.0:
+        ap.error("--damp applies to the random-weight models only")
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -52,20 +60,31 @@ def main():
 
     torch.set_num_threads(4)
     iters = tuple(args.iters)
-    tm = cs.make_models()
-    obs = cs.make_rgb_observations(tm, seed=0)
+    if args.trained:
+        from humor_torch import testing as TTST
+        from humor_tpu import testing as JTST
+
+        jm = JTST.trained_tto_models(cache=args.trained)
+        tm = TTST.trained_tto_models(cache=args.trained, device="cpu")
+        base, obs, _, _ = TTST.rgb_case(tm)
+    else:
+        tm = cs.make_models()
+        obs = cs.make_rgb_observations(tm, seed=0)
+        base = cs.rgb_config(iters)
     if args.damp != 1.0:
         tm = tm._replace(humor=cs.damped(tm.humor, args.damp))
+    if not args.trained:
+        jm = jax_models(tm)
     search = ("parallel", "parallel", "zoom")
-    cfg_t = dataclasses.replace(cs.rgb_config(iters),
+    cfg_t = dataclasses.replace(base, num_iters=iters,
                                 lbfgs_linesearch=search,
                                 stage3_tune_init_state=False)
     w = tuple(JE.StageWeights(**dataclasses.asdict(s))
               for s in cfg_t.stage_weights)
     cfg_j = JO.TTOConfig(
         seq_len=cfg_t.seq_len, stage_weights=w,
-        energy=JE.EnergyConfig(smpl2op_map=cs.SMPL2OP), num_iters=iters,
-        lbfgs_linesearch=search, optim_floor=True,
+        energy=JE.EnergyConfig(smpl2op_map=cfg_t.energy.smpl2op_map),
+        num_iters=iters, lbfgs_linesearch=search, optim_floor=True,
         stage3_tune_init_state=False)
 
     evals = {"jax": [], "port": []}
@@ -82,7 +101,7 @@ def main():
         return out
 
     JE.motion_fit, TE.motion_fit = j_counted, t_counted
-    rj = JO.make_runner(cfg_j, jax_models(tm))(
+    rj = JO.make_runner(cfg_j, jm)(
         {k: jnp.asarray(v.numpy()) for k, v in obs.items()})
     jax.block_until_ready(rj.final["trans"])
     jax.effects_barrier()
@@ -90,6 +109,7 @@ def main():
 
     n3 = iters[2]
     out = {"iterations": list(iters), "damp": args.damp,
+           "trained": args.trained,
            "jax_evaluations": len(evals["jax"]),
            "port_evaluations": len(evals["port"]),
            "jax_probes_per_iteration": (len(evals["jax"]) - 2) / n3,

@@ -31,7 +31,7 @@ for n in ("fitting.cli", "fitting.lbfgs", "eval.metrics", "eval.fitting_cli",
           "data.amass", "data.device_store", "utils.checkpoint",
           "data.fit_dataset", "data.process_amass", "data.cleanup_amass",
           "eval.humor_eval", "eval.cli", "train.gmm_cli",
-          "utils.profiling"):
+          "utils.profiling", "testing"):
     assert "humor_torch." + n in names, n
 """
 

@@ -81,11 +81,17 @@ def test_train_cli_needs_a_gpu_unless_cpu_is_asked(tmp_path):
         TC.main(argv)
 
 
-@pytest.mark.parametrize("flags", [["--model-steps-in", "2"],
+@pytest.mark.parametrize("flags", [["--model-compute-dtype", "float16"],
                                    ["--model-compute-dtype", "bfloat16"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_into(TrainCLIConfig, ["@" + CFG, *flags])
+
+
+def test_steps_in_flag_parses():
+    """--model-steps-in is ported: the config takes it."""
+    cfg = parse_into(TrainCLIConfig, ["@" + CFG, "--model-steps-in", "2"])
+    assert cfg.model_steps_in == 2
 
 
 def test_k_step_dispatch_raises(tmp_path):
