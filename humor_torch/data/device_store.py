@@ -7,7 +7,8 @@ run on the card. Window sampling stays on the host
 (humor_torch.data.sampler), so the (sequence, start) pairs equal the host
 path's. At noise_std 0 a batch equals the host gather's; the noise is
 drawn from a torch.Generator seeded with seed + 1, not from the host
-sampler's stream.
+sampler's stream. `sample_window_chunk` gathers the k batches of a
+k-step chunk at once.
 """
 
 from __future__ import annotations
@@ -77,24 +78,59 @@ class DeviceWindowStore:
                       columns: Sequence[str] = TRAIN_COLUMNS) -> int:
         return int(ds.store.shape[0]) * _column_layout(columns)[2] * 4
 
-    def sample_windows(self, seed: int, batch: int, window_frames: int,
-                       noise_std: float = 0.0):
-        """Host-sampled windows gathered on the device: (world, meta),
-        world components (B, W, D), meta {betas, gender_ids}."""
-        seq_idx, start = sampler.sample_windows(self.lengths, window_frames,
-                                                seed, batch)
+    def _gather(self, seq_idx: np.ndarray, start: np.ndarray,
+                window_frames: int, noise_std: float, noise_seed: int,
+                rows: Optional[slice]):
+        """(..., B) sampled windows -> (world, meta) gathered on the
+        device, only the batch rows `rows` (the last index axis) when
+        given; the noise is drawn for the whole batch and sliced, so a
+        rank's rows equal the same rows of the whole batch."""
         dev = self.store.device
+        shape = seq_idx.shape
+        if rows is not None:
+            seq_idx, start = seq_idx[..., rows], start[..., rows]
         rows0 = torch.as_tensor(self.offsets[seq_idx] + start).to(dev)
-        frames = self.store[rows0[:, None]
+        frames = self.store[rows0[..., None]
                             + torch.arange(window_frames, device=dev)]
         if noise_std > 0.0:
-            g = torch.Generator(device=dev).manual_seed(seed + 1)
-            frames = frames + noise_std * torch.randn(
-                frames.shape, generator=g, device=dev)
+            g = torch.Generator(device=dev).manual_seed(noise_seed)
+            noise = torch.randn((*shape, window_frames, frames.shape[-1]),
+                                generator=g, device=dev)
+            if rows is not None:
+                noise = noise[..., rows, :, :]
+            frames = frames + noise_std * noise
         seq_dev = torch.as_tensor(seq_idx).to(dev)
         world = {n: frames[..., a:b] for n, (a, b) in self.layout.items()}
         return world, {"betas": self.betas[seq_dev],
                        "gender_ids": self.gender_ids[seq_dev]}
+
+    def sample_windows(self, seed: int, batch: int, window_frames: int,
+                       noise_std: float = 0.0, rows: Optional[slice] = None):
+        """Host-sampled windows gathered on the device: (world, meta),
+        world components (B, W, D), meta {betas, gender_ids}; with `rows`
+        (a data-parallel rank's, parallel.mesh.local_rows) only those of
+        the batch."""
+        seq_idx, start = sampler.sample_windows(self.lengths, window_frames,
+                                                seed, batch)
+        return self._gather(seq_idx, start, window_frames, noise_std,
+                            seed + 1, rows)
+
+    def sample_window_chunk(self, seeds: Sequence[int], batch: int,
+                            window_frames: int, noise_std: float = 0.0,
+                            rows: Optional[slice] = None):
+        """k per-step seeds -> one (k, B, W, D) gather on the device (the
+        k-step trainer's chunk, train/step.make_multi_steps). The windows
+        are sampled per seed on the host, so at noise 0 the chunk equals
+        the k sample_windows(seed_i) results stacked, bit for bit; with
+        noise the chunk draws from one generator seeded seeds[0] + 1, as
+        the JAX package draws from one key: the same distribution, other
+        draws."""
+        sampled = [sampler.sample_windows(self.lengths, window_frames, s,
+                                          batch) for s in seeds]
+        return self._gather(np.stack([si for si, _ in sampled]),
+                            np.stack([st for _, st in sampled]),
+                            window_frames, noise_std, int(seeds[0]) + 1,
+                            rows)
 
 
 def maybe_stage(ds: AmassDataset, device, mode: int = -1,

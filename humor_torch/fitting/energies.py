@@ -16,6 +16,19 @@ candidate's row sum is JAX's scalar for that candidate. Missing
 observations carry an inf sentinel and are masked with `torch.where`,
 never by multiplying (0 * inf is NaN, in the gradient too); the overlap
 masks multiply, as JAX's do, because predictions are finite.
+
+Windows split over ranks (the sharded fit, `mesh`): each rank holds B/W
+consecutive windows and the whole `seq_interval`. Every term but the
+overlap ones is per window (the point-cloud term's robust scale
+included), so it needs nothing. A rank charges the pairs whose first
+window it holds: the pair of its last window with the next rank's first
+takes that window through a differentiable all-gather, and the
+cross-batch terms are charged by the rank holding window 0. Each pair
+is charged once: the gather's backward sums every rank's cotangents, so
+a term charged on every rank would count W times in the gradient. Every
+rank builds the same terms and masks out with `torch.where` what it does
+not charge (the last rank's missing pair, window 0's terms elsewhere),
+so that all ranks enter the gather's backward together.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from humor_torch.fitting import geometry as geo
 from humor_torch.fitting import robust as rob
 from humor_torch.models import gmm as gmm_lib
 from humor_torch.ops import chamfer
+from humor_torch.parallel import mesh as P
 
 CONTACT_HEIGHT_THRESH = 0.08
 
@@ -298,22 +312,57 @@ def _masked_overlap_l2(prev_seq: torch.Tensor, cur_seq: torch.Tensor,
     return pos, vel
 
 
-def overlap_consist_loss(verts3d: torch.Tensor, seq_interval: torch.Tensor
-                         ) -> torch.Tensor:
+def _local_windows(num_windows: int, mesh) -> int:
+    return num_windows if mesh is None else num_windows // mesh.size
+
+
+def _with_next(c: torch.Tensor, seq_interval: torch.Tensor, mesh):
+    """This rank's windows (K, Bl, ...) followed by the next rank's first
+    -> (windows (K, Bl+1, ...), their intervals (Bl+1, 2), pair mask
+    (Bl,)). The last rank has no next window: it pairs its last with its
+    own first, which the mask drops."""
+    Bl = c.shape[1]
+    lo, last = mesh.rank * Bl, mesh.rank == mesh.size - 1
+    firsts = P.all_gather_batch(mesh, c[:, :1], dim=1)       # (K, W, ...)
+    nxt = mesh.rank if last else mesh.rank + 1
+    ext = torch.cat([c, firsts[:, nxt:nxt + 1]], dim=1)
+    rows = torch.as_tensor(list(range(lo, lo + Bl)) + [lo if last else
+                                                        lo + Bl],
+                           device=seq_interval.device)
+    valid = torch.ones(Bl, dtype=torch.bool, device=c.device)
+    valid[-1] = not last
+    return ext, seq_interval[rows], valid
+
+
+def _on_first_rank(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """A term of global window 0: kept by the rank that holds it."""
+    if mesh is None or mesh.rank == 0:
+        return loss
+    return torch.where(torch.zeros_like(loss, dtype=torch.bool), loss,
+                       torch.zeros_like(loss))
+
+
+def overlap_consist_loss(verts3d: torch.Tensor, seq_interval: torch.Tensor,
+                         mesh=None) -> torch.Tensor:
     """Within-batch agreement of consecutive windows: position and
     velocity of the predicted keypoint vertices (K*B, T, V, 3) over the
     frames two windows share, from the untiled (B, 2) [start, end)
     intervals. Returns (K*B,), the pair (b, b+1) of each candidate on its
-    row b."""
+    row b. With `mesh`, B is this rank's share of the windows and
+    `seq_interval` is the whole batch's."""
     B = seq_interval.shape[0]
     if B < 2:
         return verts3d.new_zeros(verts3d.shape[0])
-    v = _candidates(verts3d, B)
+    v = _candidates(verts3d, _local_windows(B, mesh))
+    if mesh is not None:
+        v, seq_interval, valid = _with_next(v, seq_interval, mesh)
     overlaps = (seq_interval[:-1, 1] - seq_interval[1:, 0]).long().expand(
-        v.shape[0], B - 1)
+        v.shape[0], v.shape[1] - 1)
     pos, vel = _masked_overlap_l2(v[:, :-1], v[:, 1:], overlaps,
                                   with_vel=True)
-    return _charge_pairs(pos + vel)
+    if mesh is None:
+        return _charge_pairs(pos + vel)
+    return torch.where(valid, pos + vel, torch.zeros_like(pos)).reshape(-1)
 
 
 def xbatch_overlap_loss(verts3d_first: torch.Tensor,
@@ -343,27 +392,40 @@ def xbatch_overlap_loss(verts3d_first: torch.Tensor,
     return loss
 
 
-def neighbour_l2_loss(x: torch.Tensor, num_windows: int) -> torch.Tensor:
+def neighbour_l2_loss(x: torch.Tensor, num_windows: int, mesh=None,
+                      seq_interval: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """0.5 * ||x[b] - x[b+1]||^2 of consecutive windows' per-window
-    quantities (betas, floor plane), (K*B, ...) -> (K*B,) on row b."""
+    quantities (betas, floor plane), (K*B, ...) -> (K*B,) on row b. With
+    `mesh` (and the whole batch's `seq_interval`, which only sizes the
+    exchange), B is this rank's share of the num_windows windows."""
     if num_windows < 2:
         return x.new_zeros(x.shape[0])
-    c = _candidates(x, num_windows)
+    c = _candidates(x, _local_windows(num_windows, mesh))
+    if mesh is not None:
+        c, _, valid = _with_next(c, seq_interval, mesh)
     d = c[:, :-1] - c[:, 1:]
-    return _charge_pairs(0.5 * _sum_after(d * d, 2))
+    pair = 0.5 * _sum_after(d * d, 2)
+    if mesh is None:
+        return _charge_pairs(pair)
+    return torch.where(valid, pair, torch.zeros_like(pair)).reshape(-1)
 
 
-def xbatch_l2_loss(x: torch.Tensor, prev: torch.Tensor, num_windows: int
-                   ) -> torch.Tensor:
-    """0.5 * ||x[0] - prev||^2 of each candidate's window 0, on row 0."""
-    d = _candidates(x, num_windows)[:, 0] - prev
-    return _charge_first(0.5 * _sum_after(d * d, 1), num_windows)
+def xbatch_l2_loss(x: torch.Tensor, prev: torch.Tensor, num_windows: int,
+                   mesh=None) -> torch.Tensor:
+    """0.5 * ||x[0] - prev||^2 of each candidate's window 0, on row 0 (of
+    the rank holding window 0, with `mesh`)."""
+    nb = _local_windows(num_windows, mesh)
+    d = _candidates(x, nb)[:, 0] - prev
+    return _charge_first(_on_first_rank(0.5 * _sum_after(d * d, 1), mesh),
+                         nb)
 
 
 def root_fit(cfg: EnergyConfig, w: StageWeights,
              observed: Dict[str, torch.Tensor],
-             pred: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Data terms (the stage-1 objective)."""
+             pred: Dict[str, torch.Tensor], mesh=None) -> torch.Tensor:
+    """Data terms (the stage-1 objective); `mesh` for windows split over
+    ranks (see the module docstring)."""
     loss = torch.zeros(pred["joints3d"].shape[0], dtype=pred["joints3d"].dtype,
                        device=pred["joints3d"].device)
     if w.joints3d > 0 and "joints3d" in observed:
@@ -385,22 +447,24 @@ def root_fit(cfg: EnergyConfig, w: StageWeights,
             and "verts3d" in pred):
         iv = observed["seq_interval"]
         loss = loss + w.rgb_overlap_consist * overlap_consist_loss(
-            pred["verts3d"], iv)
+            pred["verts3d"], iv, mesh)
         if "prev_batch_overlap_res" in observed:
             prev = observed["prev_batch_overlap_res"]
-            first = _candidates(pred["verts3d"], iv.shape[0])[:, 0]
+            nb = _local_windows(iv.shape[0], mesh)
+            first = _candidates(pred["verts3d"], nb)[:, 0]
             loss = loss + w.rgb_overlap_consist * _charge_first(
-                xbatch_overlap_loss(first, prev["verts3d"],
-                                    prev["seq_interval"][1] - iv[0, 0]),
-                iv.shape[0])
+                _on_first_rank(xbatch_overlap_loss(
+                    first, prev["verts3d"],
+                    prev["seq_interval"][1] - iv[0, 0]), mesh), nb)
     return loss
 
 
 def smpl_fit(cfg: EnergyConfig, w: StageWeights,
              observed: Dict[str, torch.Tensor],
-             pred: Dict[str, torch.Tensor], nsteps: int) -> torch.Tensor:
+             pred: Dict[str, torch.Tensor], nsteps: int,
+             mesh=None) -> torch.Tensor:
     """Stage-2 objective: data + pose/shape priors + smoothness."""
-    loss = root_fit(cfg, w, observed, pred)
+    loss = root_fit(cfg, w, observed, pred, mesh)
     if w.pose_prior > 0 and "latent_pose" in pred:
         loss = loss + w.pose_prior * pose_prior_loss(pred["latent_pose"])
     if w.shape_prior > 0 and "betas" in pred:
@@ -410,13 +474,13 @@ def smpl_fit(cfg: EnergyConfig, w: StageWeights,
             pred["joints3d"])
     if (w.rgb_overlap_consist > 0 and "seq_interval" in observed
             and "betas" in pred):
-        nb = observed["seq_interval"].shape[0]
+        iv = observed["seq_interval"]
         loss = loss + w.rgb_overlap_consist * neighbour_l2_loss(
-            pred["betas"], nb)
+            pred["betas"], iv.shape[0], mesh, iv)
         if "prev_batch_overlap_res" in observed:
             loss = loss + w.rgb_overlap_consist * xbatch_l2_loss(
                 pred["betas"], observed["prev_batch_overlap_res"]["betas"],
-                nb)
+                iv.shape[0], mesh)
     return loss
 
 
@@ -427,11 +491,12 @@ def motion_fit(cfg: EnergyConfig, w: StageWeights,
                gmm: Optional[gmm_lib.GmmParams] = None,
                cond_prior: Optional[Tuple] = None,
                init_motion_scale: float = 1.0,
-               gmm_terms: Optional[Tuple] = None) -> torch.Tensor:
+               gmm_terms: Optional[Tuple] = None,
+               mesh=None) -> torch.Tensor:
     """Stage-3 objective: the stage-2 terms on the camera-frame prediction
     `cam_pred`, the motion/init priors and the consistency and contact
     terms on the prior-frame `pred`, and the floor term."""
-    loss = smpl_fit(cfg, w, observed, cam_pred, nsteps)
+    loss = smpl_fit(cfg, w, observed, cam_pred, nsteps, mesh)
     if w.motion_prior > 0 and "latent_motion" in pred:
         loss = loss + w.motion_prior * motion_prior_loss(
             pred["latent_motion"], cond_prior)
@@ -462,11 +527,12 @@ def motion_fit(cfg: EnergyConfig, w: StageWeights,
             cam_pred["floor_plane"], observed["floor_plane"])
     if (w.rgb_overlap_consist > 0 and "seq_interval" in observed
             and "floor_plane" in cam_pred):
-        nb = observed["seq_interval"].shape[0]
+        iv = observed["seq_interval"]
         loss = loss + w.rgb_overlap_consist * neighbour_l2_loss(
-            cam_pred["floor_plane"], nb)
+            cam_pred["floor_plane"], iv.shape[0], mesh, iv)
         if "prev_batch_overlap_res" in observed:
             fp = observed["prev_batch_overlap_res"]["floor_plane"]
             loss = loss + w.rgb_overlap_consist * xbatch_l2_loss(
-                cam_pred["floor_plane"], fp[..., :3] * fp[..., 3:], nb)
+                cam_pred["floor_plane"], fp[..., :3] * fp[..., 3:],
+                iv.shape[0], mesh)
     return loss

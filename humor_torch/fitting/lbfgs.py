@@ -33,6 +33,17 @@ while loop does: once the masked gradient's inf-norm is <= tol_grad, or
 after `stall_patience` consecutive iterations that each moved the
 variables by <= tol_change (inf-norm). The unreached tail of the loss
 history is filled with the final value.
+
+With `reduce` (a parallel.mesh.Mesh) the variables are split over ranks
+(the windows-sharded fit): each rank holds its shard of the flat vector,
+and `loss_fn` returns its share of each candidate's loss. Every quantity
+the search branches on or scales by is then reduced over ranks: the
+candidate losses (sum), every dot product and norm of the two-loop
+recursion and of the line searches' slopes (sum), and the early exit's
+inf-norms (max). So every rank takes the same branch at each host
+decision (`_select_memory`'s count, the zoom search's), as a rank that
+decided from its own shard would deadlock or diverge. Without `reduce`
+the arithmetic is the single-device one, unchanged.
 """
 
 from __future__ import annotations
@@ -41,6 +52,8 @@ import math
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from humor_torch.parallel import mesh as P
 
 _C1, _C2 = 1e-4, 0.9
 
@@ -110,17 +123,20 @@ class _LbfgsMemory:
         new.__dict__.update(self.__dict__)
         return new
 
-    def direction(self, g: torch.Tensor, params: torch.Tensor
+    def direction(self, g: torch.Tensor, params: torch.Tensor,
+                  dot: Callable = torch.dot, norm: Callable =
+                  torch.linalg.vector_norm
                   ) -> Tuple[torch.Tensor, "_LbfgsMemory"]:
         """(-H g, updated memory); the memory is updated with the
-        (params, g) pair before preconditioning, as optax does."""
+        (params, g) pair before preconditioning, as optax does. `dot` and
+        `norm` are reduced over ranks for a sharded vector."""
         m = self.m
         new = self.copy()
         idx = self.count % m
         prev = (self.count - 1) % m
         dp = params - self.params
         du = g - self.updates
-        vd = torch.dot(du, dp)
+        vd = dot(du, dp)
         rho = torch.where(vd == 0.0, torch.zeros_like(vd), 1.0 / vd)
         if self.count == 0:
             dp, du, rho = (torch.zeros_like(dp), torch.zeros_like(du),
@@ -132,21 +148,21 @@ class _LbfgsMemory:
         new.dupdates[prev] = du
         new.rho[prev] = rho
         if self.count > 0:
-            den = torch.dot(du, du)
-            gamma = torch.where(den > 0.0, torch.dot(du, dp) / den,
+            den = dot(du, du)
+            gamma = torch.where(den > 0.0, dot(du, dp) / den,
                                 torch.ones_like(den))
         else:
-            gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+            gamma = torch.clamp(1.0 / norm(g), max=1.0)
         order = [(idx + i) % m for i in range(m)]
         vec = g
         alphas = {}
         for i in reversed(order):
-            a = new.rho[i] * torch.dot(new.dparams[i], vec)
+            a = new.rho[i] * dot(new.dparams[i], vec)
             vec = vec - a * new.dupdates[i]
             alphas[i] = a
         vec = gamma * vec
         for i in order:
-            b = new.rho[i] * torch.dot(new.dupdates[i], vec)
+            b = new.rho[i] * dot(new.dupdates[i], vec)
             vec = vec + (alphas[i] - b) * new.dparams[i]
         new.count = self.count + 1
         new.params = params
@@ -242,7 +258,8 @@ def _curvature_error(slope, slope_init):
 
 
 def zoom_linesearch(probe: Callable, value: torch.Tensor, grad: torch.Tensor,
-                    direction: torch.Tensor, max_steps: int
+                    direction: torch.Tensor, max_steps: int,
+                    dot: Callable = torch.dot
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Step size along `direction` from the point where the loss is
     `value` with gradient `grad` -> (stepsize, value, gradient at the
@@ -253,9 +270,10 @@ def zoom_linesearch(probe: Callable, value: torch.Tensor, grad: torch.Tensor,
     a point meeting both conditions, after `max_steps` probes, or once
     the interval is under 1e-5 with a sufficient decrease found; a search
     that fails returns its safe point (the best probe with sufficient
-    decrease, the start point when there is none), or its last probe."""
+    decrease, the start point when there is none), or its last probe.
+    The slopes are `dot`s, reduced over ranks for a sharded vector."""
     W = torch.where
-    slope = torch.dot(direction, grad)
+    slope = dot(direction, grad)
     zero = torch.zeros_like(value)
     inf = torch.full_like(value, math.inf)
     false = torch.zeros((), dtype=torch.bool, device=value.device)
@@ -269,7 +287,7 @@ def zoom_linesearch(probe: Callable, value: torch.Tensor, grad: torch.Tensor,
 
     def on_line(step):
         v, g = probe(step)
-        return v, g, torch.dot(g, direction)
+        return v, g, dot(g, direction)
 
     def search_interval(s: _Zoom) -> _Zoom:
         new = (torch.ones_like(value) if s.count == 0
@@ -371,12 +389,15 @@ def run_lbfgs(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
               num_candidates: int = 8, max_linesearch_steps: int = 20,
               tol_grad: Optional[float] = None,
               tol_change: Optional[float] = None,
-              stall_patience: int = 3) -> LbfgsResult:
+              stall_patience: int = 3,
+              reduce: Optional[P.Mesh] = None) -> LbfgsResult:
     """Minimize `loss_fn` (see the module docstring for its batched
     signature) from `init_params` for `num_iters` iterations, fewer when
     a tolerance stops it early. `max_linesearch_steps` is the zoom
     search's probe budget, `num_candidates` the parallel and armijo
-    searches' grid."""
+    searches' grid. With `reduce`, the params are this rank's shard and
+    the losses and returned history are the sums over ranks (see the
+    module docstring)."""
     if linesearch not in ("parallel", "armijo", "zoom"):
         raise ValueError(f"unknown linesearch {linesearch!r}")
     fl = _Flat(init_params)
@@ -387,17 +408,28 @@ def run_lbfgs(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
     def masked(g):
         return g if mvec is None else g * mvec
 
+    if reduce is None:
+        dot, norm = torch.dot, torch.linalg.vector_norm
+        total = inf_norm = lambda t: t
+    else:
+        total = lambda t: P.all_reduce_sum(reduce, t.detach())
+        dot = lambda a, b: total(torch.dot(a, b))
+        norm = lambda a: torch.sqrt(dot(a, a))
+        inf_norm = lambda t: P.all_reduce_max(reduce, t)
+
     def value_and_grad(xs: torch.Tensor):
-        """xs (K, P) -> (values (K,), grads (K, P))."""
+        """xs (K, P) -> (values (K,), grads (K, P)); each rank
+        differentiates its own share of the loss, whose collectives
+        carry the cross-rank terms' cotangents."""
         xs = xs.detach().requires_grad_(True)
         with torch.enable_grad():
             vals = loss_fn(fl.unflat(xs))
             g, = torch.autograd.grad(vals.sum(), xs)
-        return vals.detach(), g
+        return total(vals.detach()), g
 
     def values(xs: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return loss_fn(fl.unflat(xs))
+            return total(loss_fn(fl.unflat(xs)))
 
     def value_and_grad1(x: torch.Tensor):
         v, g = value_and_grad(x[None])
@@ -426,14 +458,14 @@ def run_lbfgs(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
         best_x = _select(better, x, best_x)
         best_val = _select(better, value, best_val)
 
-        direction, new_mem = mem.direction(grads, x)
+        direction, new_mem = mem.direction(grads, x, dot, norm)
         direction = masked(direction)
-        g0d = torch.dot(grads, direction)
+        g0d = dot(grads, direction)
 
         if linesearch == "zoom":
             a_sel, new_value, new_grads = zoom_linesearch(
                 lambda a: value_and_grad1(x + a * direction), value, grads,
-                direction, max_linesearch_steps)
+                direction, max_linesearch_steps, dot)
             new_x = x + a_sel * direction
             if not bool(torch.isfinite(new_value)):   # host sync
                 # value_and_grad_from_state: the search's value is not
@@ -450,7 +482,7 @@ def run_lbfgs(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
                 vals, grads_k = value_and_grad(cand)
                 finite = torch.isfinite(vals)
                 armijo = vals <= value + _C1 * alphas * g0d
-                curvature = torch.abs(grads_k @ direction) \
+                curvature = torch.abs(total(grads_k @ direction)) \
                     <= _C2 * torch.abs(g0d)
                 accept = finite & armijo & curvature
             else:
@@ -470,12 +502,12 @@ def run_lbfgs(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
             else:
                 new_value, new_grads = value_and_grad1(new_x)
                 new_grads = masked(new_grads)
-                keep = found & (torch.abs(torch.dot(new_grads, direction))
+                keep = found & (torch.abs(dot(new_grads, direction))
                                 <= _C2 * torch.abs(g0d))
 
         tol = 1e-4 * torch.abs(value) + 1e-8
         ok = (torch.isfinite(new_value) & (new_value <= value + tol)
-              & torch.isfinite(torch.linalg.vector_norm(direction)))
+              & torch.isfinite(norm(direction)))
         fresh = _LbfgsMemory(x0, history_size)
         # monotone safeguard: reject a non-descent step and restart the
         # memory; the parallel and armijo searches keep the step but drop
@@ -490,8 +522,8 @@ def run_lbfgs(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
         x, value, grads = new_x, new_value, new_grads
 
         if early:
-            change = float(torch.max(torch.abs(x - x_old)))  # host sync
-            gnorm = float(torch.max(torch.abs(grads)))       # host sync
+            change = float(inf_norm(torch.max(torch.abs(x - x_old))))
+            gnorm = float(inf_norm(torch.max(torch.abs(grads))))  # syncs
             stall = stall + 1 if change <= tol_change else 0
             if gnorm <= tol_grad:
                 stall = stall_patience

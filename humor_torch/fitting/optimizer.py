@@ -38,8 +38,14 @@ K*B windows (see fitting/lbfgs.py); the rollout kernel then sees M = K*B
 rows. The per-window observations are tiled to K*B rows; seq_interval
 and the previous batch's result are not, and the overlap terms
 (fitting/energies.py) reshape their rows to (K, B); the zoom search
-evaluates one candidate at a time (M = B rows). Not ported yet:
-multi-device sharding.
+evaluates one candidate at a time (M = B rows).
+
+With a `mesh` (parallel/mesh.py) the windows are split over ranks, as the
+JAX package shards them over its "dp" mesh: each rank fits its B/W
+consecutive windows, the L-BFGS reductions run over ranks
+(fitting/lbfgs.py), the overlap terms exchange the windows at the ranks'
+edges (fitting/energies.py), and `run` returns the whole batch's result
+on every rank.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from humor_torch.models import humor as H
 from humor_torch.models import vposer as vp
 from humor_torch.ops import rollout_kernel as RK
 from humor_torch.ops import transforms
+from humor_torch.parallel import mesh as P
 
 CONTACT_THRESH = 0.5
 
@@ -477,7 +484,7 @@ _RIGID_KEYS = ("joints3d", "joints3d_extra", "verts3d", "points3d")
 
 
 def stage1_objective(cfg: TTOConfig, fm: FitModels, vars_,
-                     verts: str = "none"):
+                     verts: str = "none", mesh: Optional[P.Mesh] = None):
     """Root-only data terms. Pose and shape are frozen in stage 1, so the
     body is skinned once (identity root, zero trans; `verts` as in
     smpl_results) and each evaluation applies p = R_root (base - j0) + j0
@@ -504,11 +511,12 @@ def stage1_objective(cfg: TTOConfig, fm: FitModels, vars_,
         off = j0 + v["trans"][:, :, None]
         pred = {k: torch.einsum("btij,btnj->btni", R, p) + off
                 for k, p in pts.items()}
-        return E.root_fit(cfg.energy, w1, obs, pred)
+        return E.root_fit(cfg.energy, w1, obs, pred, mesh)
     return loss
 
 
-def stage2_objective(cfg: TTOConfig, fm: FitModels):
+def stage2_objective(cfg: TTOConfig, fm: FitModels,
+                     mesh: Optional[P.Mesh] = None):
     """Data terms + pose/shape priors + joint smoothness."""
     def loss(v, obs):
         pred = smpl_results(fm.models.body, v["trans"], v["root_orient"],
@@ -517,7 +525,7 @@ def stage2_objective(cfg: TTOConfig, fm: FitModels):
         pred["latent_pose"] = v["latent_pose"]
         pred["betas"] = v["betas"]
         return E.smpl_fit(cfg.energy, cfg.stage_weights[1], obs, pred,
-                          cfg.seq_len)
+                          cfg.seq_len, mesh)
     return loss
 
 
@@ -564,7 +572,8 @@ def stage3_setup(cfg: TTOConfig, fm: FitModels, vars_):
 
 def stage3_objective(fm: FitModels, weights3: E.StageWeights, nsteps: int,
                      scale: float, energy: E.EnergyConfig = E.EnergyConfig(),
-                     optim_floor: bool = False):
+                     optim_floor: bool = False,
+                     mesh: Optional[P.Mesh] = None):
     """Stage-3 objective over the first `nsteps` frames: the rollout of
     the initial state under the latents, then the stage-2 terms (in the
     camera frame) and the motion, initial-state, consistency, contact and
@@ -612,7 +621,8 @@ def stage3_objective(fm: FitModels, weights3: E.StageWeights, nsteps: int,
                             cond_prior=(prior_out["cond_prior"]
                                         if m.humor_cfg.conditional_prior
                                         else None),
-                            init_motion_scale=scale, gmm_terms=fm.gmm_terms)
+                            init_motion_scale=scale, gmm_terms=fm.gmm_terms,
+                            mesh=mesh)
     return loss
 
 
@@ -645,9 +655,14 @@ def stage3_phases(cfg: TTOConfig):
 # The 3-stage runner
 # ---------------------------------------------------------------------------
 
-def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
+def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda",
+                mesh: Optional[P.Mesh] = None):
     """A reusable fit `run(observed) -> TTOResult` on `device` (the GPU
-    unless the caller asks for the CPU). `observed` holds one of
+    unless the caller asks for the CPU). With `mesh`
+    (parallel.mesh.make_mesh()) the windows are split over its ranks:
+    every rank calls `run` with the whole observation, fits its windows,
+    and gets the whole batch's TTOResult; W must divide the windows.
+    `observed` holds one of
       * "joints3d" (B, T, 22, 3) or "verts3d" (B, T, 43, 3), inf where
         a point is missing;
       * an RGB video's windows: "joints2d" (B, T, 25, 3) with
@@ -669,10 +684,12 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
         own observations, E.BATCH_OBS_KEYS, stay untiled)."""
         if iters == 0:
             return vars_, torch.zeros(0, device=dev)
-        B = batch_size_of(observed)
+        B = batch_size_of(observed)       # this rank's windows
         ls = cfg.lbfgs_linesearch
         if isinstance(ls, (tuple, list)):
             ls = ls[stage]
+        # the auto search and the candidate count key off the windows a
+        # device holds (B // W under a mesh, as the JAX package's B_dev)
         if ls == "auto":
             ls = "parallel" if B < 12 else "armijo"
         tiled = {}
@@ -693,7 +710,8 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
                              max_linesearch_steps=cfg.lbfgs_max_linesearch,
                              tol_grad=cfg.lbfgs_tol_grad,
                              tol_change=cfg.lbfgs_tol_change,
-                             stall_patience=cfg.lbfgs_stall_patience)
+                             stall_patience=cfg.lbfgs_stall_patience,
+                             reduce=mesh)
 
         if ls == "hybrid":
             polish = hybrid_polish_iters(iters, cfg.lbfgs_polish_frac)
@@ -705,6 +723,13 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
         else:
             res = run_(ls, vars_, iters)
         return res.params, res.loss_history
+
+    def gather(tree):
+        """The whole batch from every rank's windows (the loss histories
+        are sums over ranks already)."""
+        if mesh is None:
+            return tree
+        return {k: P.all_gather_batch(mesh, v) for k, v in tree.items()}
 
     def export(vars_):
         return {"trans": vars_["trans"].clone(),
@@ -728,21 +753,27 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
                 t_last[0] = now
 
         observed = _tree_to(observed, dev)
+        if mesh is not None:
+            # this rank's windows; the batch's own observations whole
+            observed = {k: v if k in E.BATCH_OBS_KEYS
+                        else P.shard_batch(mesh, v)
+                        for k, v in observed.items()}
         B = batch_size_of(observed)
         losses, per_stage = {}, {}
         vars_ = init_variables(cfg, fm.models, B, observed, dev)
         vars_, losses["stage1"] = _lbfgs(
-            stage1_objective(cfg, fm, vars_, verts_mode_for(observed)),
+            stage1_objective(cfg, fm, vars_, verts_mode_for(observed),
+                             mesh),
             vars_, cfg.num_iters[0], observed,
             lambda k: k in ("trans", "root_orient"), 0)
         with torch.no_grad():
-            per_stage["stage1"] = export(vars_)
+            per_stage["stage1"] = gather(export(vars_))
         mark("stage1")
         vars_, losses["stage2"] = _lbfgs(
-            stage2_objective(cfg, fm), vars_, cfg.num_iters[1], observed,
-            lambda k: k != "floor_plane", 1)
+            stage2_objective(cfg, fm, mesh), vars_, cfg.num_iters[1],
+            observed, lambda k: k != "floor_plane", 1)
         with torch.no_grad():
-            per_stage["stage2"] = export(vars_)
+            per_stage["stage2"] = gather(export(vars_))
         mark("stage2")
         with torch.no_grad():
             s3 = stage3_setup(cfg, fm, vars_)
@@ -750,7 +781,8 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
         hist3 = []
         for wts, nsteps, scale, n, trainable in stage3_phases(cfg):
             s3, h = _lbfgs(stage3_objective(fm, wts, nsteps, scale,
-                                            cfg.energy, cfg.optim_floor),
+                                            cfg.energy, cfg.optim_floor,
+                                            mesh),
                            s3, n, observed, trainable, 2)
             hist3.append(h)
         losses["stage3"] = torch.cat(hist3)
@@ -778,6 +810,7 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda"):
             if cfg.optim_floor:
                 final["floor_plane"] = geo.parse_floor_plane(
                     s3["floor_plane"])
+            final = gather(final)
         per_stage["stage3"] = {k: final[k] for k in
                                ("trans", "root_orient", "pose_body", "betas")}
         mark("final")

@@ -117,7 +117,9 @@ def elbo_loss(cfg: LossConfig,
               smpl_models: Optional[Dict] = None,  # {"male", "female"}
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total weighted loss and a dict of 0-d stats over step-flattened
-    rows (N = B*T)."""
+    rows (N = B*T). Every loss term is a mean over the N rows: the
+    data-parallel steps (train/step.py) average the ranks' losses and
+    gradients over equal shards, which is the global mean only so."""
     dev = pred["trans"].device
     stats: Dict[str, torch.Tensor] = {}
     loss = torch.zeros((), dtype=torch.float32, device=dev)

@@ -1,12 +1,18 @@
 """Training CLI (port of humor_tpu/train/cli.py):
 
     python -m humor_torch.train.cli @configs/train_humor.cfg [--device cpu]
+    torchrun --nproc-per-node N -m humor_torch.train.cli \
+        @configs/train_humor.cfg          # data-parallel over N ranks
 
 Trains on processed AMASS npz files under --data-path, else on eight
 synthetic sequences (so the CLI runs without licensed data), with the
 male and female SMPL+H bodies under --smplh-root, else seeded synthetic
 stand-ins. Runs on the card unless `--device cpu` is given; asking for
-the card without one raises.
+the card without one raises. Under torchrun (WORLD_SIZE > 1) it
+initialises the process group from the environment (NCCL on the card,
+gloo on the CPU, or --dist-backend) and trains data-parallel: every rank
+takes its rows of each --batch-size batch, and rank 0 writes the log,
+stats and checkpoints.
 """
 
 from __future__ import annotations
@@ -75,49 +81,93 @@ def load_body_models(smplh_root: str, device="cpu") -> Dict:
 
 
 def make_batch_fns(dataset, cfg, window_frames: int, steps: int, seed: int,
-                   device, budget_bytes: Optional[int] = None):
-    """-> (batches(epoch), store): a generator factory of `steps`
-    training batches an epoch (pairs with a cfg.model_steps_in-frame past:
-    data.windows.window_to_pairs_multi when that is over 1) (batch i of an epoch from seed seed +
-    epoch * 100003 + i), and the device store it gathers from (None on
-    the host path).
+                   device, budget_bytes: Optional[int] = None, mesh=None):
+    """-> (train_batches(epoch), train_chunks(epoch, k) | None): the
+    generator factories of `steps` training batches an epoch (batch i of
+    an epoch from seed seed + epoch * 100003 + i; pairs with a
+    cfg.model_steps_in-frame past, data.windows.window_to_pairs_multi when
+    that is over 1).
 
-    With the store (cfg.data_on_device, data/device_store.maybe_stage) a
-    batch moves only its start rows to the card; without it the windows
-    are gathered on the host and copied. Both give the same values at
-    noise_std 0 (tests/test_torch_train_data.py)."""
+    With the device store (cfg.data_on_device, data/device_store
+    .maybe_stage) a batch moves only its start rows to the card, and
+    train_chunks yields the k batches of a k-step chunk as one (k, B, ...)
+    gather, `(chunk, k)`, then the epoch's remainder as `(batch, 1)`
+    items; a chunk equals the k batches of train_batches stacked. Without
+    the store the windows are gathered on the host and copied, and
+    train_chunks is None (the trainer stacks batches itself). Both paths
+    give the same values at noise_std 0 (tests/test_torch_train_data.py).
+
+    Under a data-parallel `mesh` every rank samples the same global
+    windows and keeps its rows of each batch (parallel.mesh.local_rows):
+    the store gathers only those; the host path gathers the batch and
+    copies those."""
     from humor_torch.data.device_store import TRAIN_COLUMNS, maybe_stage
     from humor_torch.data.windows import (window_to_pairs,
                                           window_to_pairs_multi)
+    from humor_torch.parallel.mesh import local_rows
 
     S = cfg.model_steps_in
     to_pairs = ((lambda w: window_to_pairs(w)[:2]) if S == 1
                 else (lambda w: window_to_pairs_multi(w, S)))
     store = maybe_stage(dataset, device, cfg.data_on_device,
                         budget_bytes=budget_bytes)
+    rows = None if mesh is None else local_rows(mesh, cfg.batch_size)
+    step_seed = lambda epoch, i: seed + epoch * 100003 + i
+
+    def _batch(world, meta):
+        data_in, data_out = to_pairs(world)
+        return {"data_in": data_in, "data_out": data_out,
+                "betas": meta["betas"], "gender_ids": meta["gender_ids"]}
+
+    def _store_batch(s: int):
+        return _batch(*store.sample_windows(
+            s, cfg.batch_size, window_frames, noise_std=cfg.data_noise_std,
+            rows=rows))
+
+    def _host_batch(s: int):
+        world_np, meta_np = dataset.sample_windows(
+            s, cfg.batch_size, window_frames, noise_std=cfg.data_noise_std)
+        keep = slice(None) if rows is None else rows
+        world = {k: torch.as_tensor(np.ascontiguousarray(world_np[k][keep]))
+                 .to(device) for k in TRAIN_COLUMNS}
+        meta = {"betas": torch.as_tensor(meta_np["betas"][keep]).to(device),
+                "gender_ids": torch.as_tensor(
+                    meta_np["gender_ids"][keep].astype(np.int64) % 2)
+                .to(device)}
+        return _batch(world, meta)
+
+    one = _store_batch if store is not None else _host_batch
 
     def batches(epoch: int):
         for i in range(steps):
-            s = seed + epoch * 100003 + i
-            if store is not None:
-                world, meta = store.sample_windows(
-                    s, cfg.batch_size, window_frames,
-                    noise_std=cfg.data_noise_std)
-            else:
-                world_np, meta_np = dataset.sample_windows(
-                    s, cfg.batch_size, window_frames,
-                    noise_std=cfg.data_noise_std)
-                world = {k: torch.as_tensor(np.ascontiguousarray(world_np[k]))
-                         .to(device) for k in TRAIN_COLUMNS}
-                meta = {"betas": torch.as_tensor(meta_np["betas"]).to(device),
-                        "gender_ids": torch.as_tensor(
-                            meta_np["gender_ids"].astype(np.int64) % 2)
-                        .to(device)}
-            data_in, data_out = to_pairs(world)
-            yield {"data_in": data_in, "data_out": data_out,
-                   "betas": meta["betas"], "gender_ids": meta["gender_ids"]}
+            yield one(step_seed(epoch, i))
 
-    return batches, store
+    if store is None:
+        return batches, None
+
+    def chunks(epoch: int, k: int):
+        i = 0
+        while i < steps:
+            n = min(k, steps - i)
+            seeds = [step_seed(epoch, i + j) for j in range(n)]
+            if n == k:
+                # pairs over the chunk's leading (k, B) axes
+                yield _batch(*store.sample_window_chunk(
+                    seeds, cfg.batch_size, window_frames,
+                    noise_std=cfg.data_noise_std, rows=rows)), k
+            else:
+                for s in seeds:
+                    yield _store_batch(s), 1
+            i += n
+
+    return batches, chunks
+
+
+def make_batch_fn(dataset, cfg, window_frames: int, steps: int, seed: int,
+                  device, budget_bytes: Optional[int] = None, mesh=None):
+    """train_batches of make_batch_fns alone (the validation source)."""
+    return make_batch_fns(dataset, cfg, window_frames, steps, seed, device,
+                          budget_bytes=budget_bytes, mesh=mesh)[0]
 
 
 def main(argv=None) -> Dict[str, float]:
@@ -127,11 +177,17 @@ def main(argv=None) -> Dict[str, float]:
     from humor_torch.device import resolve_device
     from humor_torch.losses.elbo import LossConfig
     from humor_torch.models import humor as H
+    from humor_torch.parallel.mesh import init_from_env
     from humor_torch.train.trainer import TrainRunConfig, Trainer
     from humor_torch.utils.config import TrainCLIConfig, parse_into
 
     cfg = parse_into(TrainCLIConfig, argv, prog="humor-torch-train")
     dev = resolve_device(cfg.device)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # a torchrun launch: data-parallel over its ranks
+        mesh = init_from_env(cfg.dist_backend or None, device=dev)
+        dev = mesh.device
     model_cfg = H.HumorConfig(
         latent_size=cfg.latent_size, in_rot_rep=cfg.in_rot_rep,
         out_rot_rep=cfg.out_rot_rep,
@@ -169,16 +225,19 @@ def main(argv=None) -> Dict[str, float]:
     smpl_models = (load_body_models(cfg.smplh_root, dev)
                    if cfg.use_smpl_losses or cfg.model_use_smpl_joint_inputs
                    else None)
-    train_batches, store = make_batch_fns(
-        train_ds, cfg, window, cfg.steps_per_epoch, cfg.seed, dev)
+    train_batches, train_chunks = make_batch_fns(
+        train_ds, cfg, window, cfg.steps_per_epoch, cfg.seed, dev,
+        mesh=mesh)
     # the val store only auto-stages into what the train store left
-    used = DeviceWindowStore.staged_nbytes(train_ds) if store else 0
-    val_batches, _ = make_batch_fns(
+    used = (DeviceWindowStore.staged_nbytes(train_ds)
+            if train_chunks is not None else 0)
+    val_batches = make_batch_fn(
         val_ds, cfg, window, max(1, cfg.steps_per_epoch // 10),
         cfg.seed + 7, dev,
-        budget_bytes=max(0, default_budget_bytes(dev) - used))
+        budget_bytes=max(0, default_budget_bytes(dev) - used), mesh=mesh)
     trainer = Trainer(model_cfg, loss_cfg, run_cfg,
                       train_batches=train_batches, val_batches=val_batches,
+                      train_chunks=train_chunks,
                       steps_per_epoch=cfg.steps_per_epoch,
                       smpl_models=smpl_models, seed=cfg.seed, device=dev)
     return trainer.fit()

@@ -10,6 +10,12 @@ adam(piecewise_constant))) written in torch as optax 0.2.6 computes it:
 a step with a non-finite gradient leaves params, moments and the
 schedule's count unchanged, and the schedule's milestones count applied
 steps.
+
+`make_multi_steps` runs k steps over a chunk stacked along a new leading
+axis (`stack_batches`), as the JAX package scans them in one program; its
+stats stay on the device, so the trainer reads a chunk's stats once.
+Under a data-parallel `Mesh` (parallel/mesh.py) each rank steps on its
+rows of the batch; see make_train_steps.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from humor_torch.body_model.gendered import make_rollout_joint_fn
 from humor_torch.losses.elbo import LossConfig, elbo_loss
 from humor_torch.models import humor as H
+from humor_torch.parallel import mesh as P
 
 MAX_CONSECUTIVE_ERRORS = 10 ** 6   # apply_if_finite's, as the JAX package
 
@@ -269,10 +276,20 @@ def sched_samp_loss_fn(cfg: H.HumorConfig, loss_cfg: LossConfig,
     return fn
 
 
+def _global_noise(generator, rows: int, latent: int, dtype, device
+                  ) -> torch.Tensor:
+    """The (rows, latent) standard-normal draw that models.humor.rsample
+    makes for a batch of `rows` rows."""
+    return torch.randn((rows, latent), generator=generator, dtype=dtype,
+                       device=generator.device if generator is not None
+                       else device).to(device)
+
+
 def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
                      opt: _Optimizer,
                      smpl_models: Optional[Dict] = None,
-                     use_smpl_joint_inputs: bool = False):
+                     use_smpl_joint_inputs: bool = False,
+                     mesh: Optional[P.Mesh] = None):
     """(supervised_step, sched_samp_step, eval_step).
 
     supervised_step(state, batch, epoch, eps=None, generator=None) and
@@ -281,39 +298,155 @@ def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
     place and return (TrainState, stats); eval_step(params, batch, epoch,
     eps=None, generator=None) -> stats. Stats are 0-d tensors, with
     "total_loss" and, for the train steps, "grad_norm"
-    (optax.global_norm of the gradient before clipping)."""
+    (optax.global_norm of the gradient before clipping).
+
+    With a `mesh` the batch is this rank's rows of a global batch of W
+    times as many (parallel.mesh.shard_batch). Every rank draws the
+    global posterior noise (and the curriculum's choices) from its copy
+    of the generator, in the order the single-rank step draws them, and
+    keeps its own rows; `eps` and `use_gt`, when given, are the global
+    draws. Each rank's loss is the mean over its rows, and every ELBO
+    term (losses/elbo.py) is a mean over rows, so over equal shards the
+    mean of the ranks' losses is the global loss: the gradients are
+    averaged over ranks before the optimizer, whose non-finite skip is
+    then the same on every rank, and the params stay equal on all of
+    them. The stats are averaged over ranks too (for the contact
+    accuracies, ratios over a rank's rows, that is not the global
+    ratio)."""
     sup_loss = supervised_loss_fn(cfg, loss_cfg, smpl_models)
     ss_loss = sched_samp_loss_fn(cfg, loss_cfg, smpl_models,
                                  use_smpl_joint_inputs=use_smpl_joint_inputs)
+
+    def _local(batch):
+        """(B_local, T, rows of a global batch)."""
+        B, T = batch["data_in"]["trans"].shape[:2]
+        return B, T, slice(None) if mesh is None else P.local_rows(
+            mesh, B * mesh.size)
+
+    def _sup_eps(params, batch, eps, generator):
+        if mesh is None:
+            return eps
+        B, T, rows = _local(batch)
+        if eps is None:
+            leaf = tree_leaves(params)[0]
+            eps = _global_noise(generator, B * mesh.size * T,
+                                cfg.latent_size, leaf.dtype, leaf.device)
+        return eps[rows.start * T:rows.stop * T]
+
+    def _ss_draws(params, batch, use_gt_p, use_gt, eps, generator):
+        if mesh is None:
+            return use_gt, eps
+        B, T, rows = _local(batch)
+        if use_gt is None:
+            use_gt = torch.rand(
+                T, generator=generator,
+                device=generator.device if generator is not None
+                else "cpu") < use_gt_p
+        if eps is None:
+            leaf = tree_leaves(params)[0]
+            eps = torch.stack([_global_noise(
+                generator, B * mesh.size, cfg.latent_size, leaf.dtype,
+                leaf.device) for _ in range(T)])
+        return use_gt, eps[:, rows]
+
+    def _mean_over_ranks(stats):
+        keys = sorted(stats)
+        total = P.all_reduce_sum(mesh, torch.stack(
+            [stats[k].to(torch.float32) for k in keys]).detach())
+        return dict(zip(keys, (total / mesh.size).unbind()))
 
     def _update(state: TrainState, loss, stats):
         leaves = tree_leaves(state.params)
         grads = torch.autograd.grad(loss, leaves)
         stats = {k: v.detach() for k, v in stats.items()}
         stats["total_loss"] = loss.detach()
+        if mesh is not None:
+            grads = P.all_reduce_grad_mean(mesh, list(grads))
+            stats = _mean_over_ranks(stats)
         stats["grad_norm"] = global_norm(grads)
         opt_state = opt.update(list(grads), state.opt_state, state.params)
         return TrainState(state.params, opt_state, state.step + 1), stats
 
     def supervised_step(state: TrainState, batch, epoch, eps=None,
                         generator=None):
+        eps = _sup_eps(state.params, batch, eps, generator)
         loss, stats = sup_loss(state.params, batch, epoch, eps=eps,
                                generator=generator)
         return _update(state, loss, stats)
 
     def sched_samp_step(state: TrainState, batch, epoch, use_gt_p,
                         use_gt=None, eps=None, generator=None):
+        use_gt, eps = _ss_draws(state.params, batch, use_gt_p, use_gt, eps,
+                                generator)
         loss, stats = ss_loss(state.params, batch, epoch, use_gt_p,
                               use_gt=use_gt, eps=eps, generator=generator)
         return _update(state, loss, stats)
 
     @torch.no_grad()
     def eval_step(params, batch, epoch, eps=None, generator=None):
+        eps = _sup_eps(params, batch, eps, generator)
         loss, stats = sup_loss(params, batch, epoch, eps=eps,
                                generator=generator)
-        return {**stats, "total_loss": loss}
+        stats = {**stats, "total_loss": loss}
+        return stats if mesh is None else _mean_over_ranks(stats)
 
     return supervised_step, sched_samp_step, eval_step
+
+
+def make_multi_steps(sup_step, ss_step, k: int):
+    """(multi_sup, multi_ss): k steps over a chunk stacked along a new
+    leading axis (stack_batches), the counterpart of the JAX package's
+    lax.scan of k steps in one program.
+
+      multi_sup(state, stacked, epoch, eps=None, generator=None)
+      multi_ss(state, stacked, epoch, use_gt_p, use_gt=None, eps=None,
+               generator=None)
+
+    -> (state, stats) with every stat (k,), left on the device: nothing
+    is read by the host inside a chunk. The k steps run in order on the
+    chunk's slices and draw from `generator` in the order k calls of the
+    single step do, so a chunk equals k single steps bit for bit; `eps`
+    and `use_gt` with a leading k axis inject the draws, as the single
+    steps take them. Under a mesh the chunk holds this rank's rows of
+    each batch (shard_batch(..., batch_axis_index=1)).
+    """
+
+    def _run(step, state, stacked, draws, *extra, generator=None):
+        n = tree_leaves(stacked)[0].shape[0]
+        if n != k:
+            raise ValueError(f"a chunk of {n} batches for k = {k}")
+        stats = []
+        for i in range(k):
+            kw = {name: v[i] for name, v in draws.items() if v is not None}
+            state, s = step(state, tree_map(lambda x: x[i], stacked),
+                            *extra, generator=generator, **kw)
+            stats.append(s)
+        return state, {key: torch.stack([s[key] for s in stats])
+                       for key in stats[0]}
+
+    def multi_sup(state, stacked, epoch, eps=None, generator=None):
+        return _run(sup_step, state, stacked, {"eps": eps}, epoch,
+                    generator=generator)
+
+    def multi_ss(state, stacked, epoch, use_gt_p, use_gt=None, eps=None,
+                 generator=None):
+        return _run(ss_step, state, stacked, {"use_gt": use_gt, "eps": eps},
+                    epoch, use_gt_p, generator=generator)
+
+    return multi_sup, multi_ss
+
+
+def stack_batches(batches: List[Any]) -> Any:
+    """Batches stacked along a new leading axis, on their device (the k
+    axis of make_multi_steps)."""
+    first = batches[0]
+    if isinstance(first, dict):
+        return {key: stack_batches([b[key] for b in batches])
+                for key in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_batches([b[i] for b in batches])
+                           for i in range(len(first)))
+    return torch.stack([torch.as_tensor(b) for b in batches])
 
 
 def sched_samp_prob(epoch: int, start: int, end: int) -> float:

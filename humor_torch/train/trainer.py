@@ -2,13 +2,21 @@
 validation, and the best-train, epoch, best-val and final checkpoints
 (port of humor_tpu/train/trainer.py).
 
-One optimizer step a batch. The batches of an epoch are built in a
+The steps of an epoch run in chunks of k (`steps_per_dispatch`,
+train/step.make_multi_steps): a chunk's stats stay on the device and are
+read once, averaged over its k steps; the epoch's remainder runs as
+single steps. The items of an epoch (whole chunks at k > 1) are built in a
 daemon thread (`_prefetch`) ahead of the steps, so the host gather
 overlaps the card's work.
+
+Data-parallel: under a `Mesh` (parallel/mesh.py) every rank steps on its
+rows of each batch, the gradients are averaged over ranks, and rank 0
+alone writes the log, the stats and the checkpoints.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -22,6 +30,7 @@ import torch
 from humor_torch.device import resolve_device
 from humor_torch.losses.elbo import LossConfig
 from humor_torch.models import humor as H
+from humor_torch.parallel import mesh as P
 from humor_torch.train import step as TS
 from humor_torch.utils.checkpoint import load_state, save_state
 from humor_torch.utils.logging import Logger
@@ -44,11 +53,25 @@ class TrainRunConfig:
     load_optim: bool = True
     # HuMoR-Qual: SMPL-forward joints fed back during scheduled sampling
     use_smpl_joint_inputs: bool = False
-    # the JAX package scans k steps per device dispatch; here 0 and 1 both
-    # mean one step a batch
+    # k > 1: k steps a chunk (step.make_multi_steps), the chunk's stats
+    # read once and entered in the tracker as one update of weight k; 0:
+    # _AUTO_STEPS_PER_DISPATCH
     steps_per_dispatch: int = 0
-    # batches built ahead of the steps by a daemon thread; 0: no thread
+    # items built ahead of the steps by a daemon thread (at k > 1 an item
+    # is a whole chunk, so depth * k batches); 0: no thread
     prefetch_depth: int = 2
+    # data-parallel over the torch.distributed process group when one is
+    # initialised, one device otherwise
+    use_mesh: bool = True
+
+
+# k when steps_per_dispatch is 0. The JAX package takes 8, the knee it
+# measured on its TPU. Here k changes how often the stats are read, not
+# the work: the supervised step at 200 x 10 took 193.3-195.0 ms at k = 1,
+# 189.0-194.5 at k = 4 and 191.5-193.0 at k = 8 (chip_smoke.py phase 12,
+# two turns each, NVIDIA H100 80GB HBM3 at 700 W), so k = 8 is not slower
+# than k = 1 and auto keeps 8, which reads the stats an eighth as often.
+_AUTO_STEPS_PER_DISPATCH = 8
 
 
 def _prefetch(it: Iterator, depth: int) -> Iterator:
@@ -98,23 +121,42 @@ class Trainer:
                  val_batches: Optional[Callable[[int], Iterable[Dict]]] = None,
                  steps_per_epoch: int = 1,
                  smpl_models: Optional[Dict] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda",
+                 train_chunks: Optional[Callable[[int, int],
+                                                 Iterable]] = None):
         """train_batches(epoch) yields batches {"data_in", "data_out"
         (typed (B, T, D)), "betas", "gender_ids"} on `device`. Params
         start from H.init_params with a generator seeded `seed`; the
         posterior noise and the curriculum's draws come from a generator
-        on the device seeded `seed + 1`."""
-        if run_cfg.steps_per_dispatch not in (0, 1):
-            raise NotImplementedError(
-                "steps_per_dispatch > 1 (k train steps a dispatch) is not "
-                "ported: CUDA graphs are its counterpart, ROADMAP A3")
+        on the device seeded `seed + 1`.
+
+        train_chunks(epoch, k), when given, is the k-step source: it
+        yields (payload, n), a stacked (k, B, ...) chunk with n == k (the
+        device store's one gather, train/cli.make_batch_fns) or a single
+        batch with n == 1 (the remainder); its values equal k items of
+        train_batches stacked. Without it the trainer stacks
+        train_batches' items itself.
+
+        With run_cfg.use_mesh and an initialised process group the
+        training is data-parallel over it (parallel.mesh.make_mesh): each
+        source then yields this rank's rows of every batch
+        (make_batch_fns(..., mesh=) or parallel.mesh.shard_batch). A
+        torchrun launch (WORLD_SIZE > 1) without an initialised group
+        raises rather than train W unrelated copies."""
+        if run_cfg.steps_per_dispatch < 0:
+            raise ValueError(f"steps_per_dispatch "
+                             f"{run_cfg.steps_per_dispatch} < 0")
         self.device = resolve_device(device)
         self.model_cfg, self.loss_cfg, self.run_cfg = model_cfg, loss_cfg, run_cfg
         self.train_batches, self.val_batches = train_batches, val_batches
+        self.train_chunks = train_chunks
         self.steps_per_epoch = steps_per_epoch
+        self.mesh = self._group_mesh() if run_cfg.use_mesh else None
+        self.lead = self.mesh is None or self.mesh.rank == 0
 
         os.makedirs(run_cfg.out_dir, exist_ok=True)
-        Logger.init(os.path.join(run_cfg.out_dir, "train.log"))
+        if self.lead:
+            Logger.init(os.path.join(run_cfg.out_dir, "train.log"))
         self.opt = TS.make_optimizer(
             lr=run_cfg.lr, milestones=run_cfg.sched_milestones,
             decays=run_cfg.sched_decays, steps_per_epoch=steps_per_epoch)
@@ -133,44 +175,93 @@ class Trainer:
             self.start_epoch = restored["epoch"] + 1
             self.min_train_loss = restored["min_train_loss"]
             self.min_val_loss = restored["min_val_loss"]
-            Logger.log(f"resumed from {run_cfg.resume_ckpt} at epoch "
-                       f"{self.start_epoch}")
+            self._log(f"resumed from {run_cfg.resume_ckpt} at epoch "
+                      f"{self.start_epoch}")
         self.sup_step, self.ss_step, self.eval_step = TS.make_train_steps(
             model_cfg, loss_cfg, self.opt, smpl_models,
-            use_smpl_joint_inputs=run_cfg.use_smpl_joint_inputs)
+            use_smpl_joint_inputs=run_cfg.use_smpl_joint_inputs,
+            mesh=self.mesh)
+        self.k = run_cfg.steps_per_dispatch or _AUTO_STEPS_PER_DISPATCH
+        self.multi_sup = self.multi_ss = None
+        if self.k > 1:
+            self.multi_sup, self.multi_ss = TS.make_multi_steps(
+                self.sup_step, self.ss_step, self.k)
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed + 1)
         n_params = sum(p.numel() for p in TS.tree_leaves(self.state.params))
-        Logger.log(f"model params: {n_params / 1e6:.2f}M; device: "
-                   f"{self.device}"
-                   + (f" ({torch.cuda.get_device_name(self.device)})"
-                      if self.device.type == "cuda" else ""))
+        self._log(f"model params: {n_params / 1e6:.2f}M; device: "
+                  f"{self.device}"
+                  + (f" ({torch.cuda.get_device_name(self.device)})"
+                     if self.device.type == "cuda" else "")
+                  + (f"; data-parallel over {self.mesh.size} ranks"
+                     if self.mesh is not None else "")
+                  + f"; {self.k} steps a chunk")
+
+    def _group_mesh(self) -> Optional[P.Mesh]:
+        if torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            return P.make_mesh(device=self.device)
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise RuntimeError(
+                "WORLD_SIZE > 1 but no process group is initialised: call "
+                "humor_torch.parallel.mesh.init_from_env() first")
+        return None
+
+    def _log(self, msg: str) -> None:
+        if self.lead:
+            Logger.log(msg)
+
+    def _chunk_source(self, epoch: int, k: int):
+        """(payload, n) items: stacked (k, B, ...) chunks with n == k,
+        then the remainder's single batches with n == 1."""
+        if k > 1 and self.train_chunks is not None:
+            yield from self.train_chunks(epoch, k)
+            return
+        it = iter(self.train_batches(epoch))
+        while True:
+            chunk = list(itertools.islice(it, k))
+            if not chunk:
+                return
+            if len(chunk) == k and k > 1:
+                yield TS.stack_batches(chunk), k
+            else:
+                for b in chunk:
+                    yield b, 1
 
     def _run_epoch(self, epoch: int, tracker: StatTracker) -> float:
         rc = self.run_cfg
         use_gt_p = TS.sched_samp_prob(epoch, rc.sched_samp_start,
                                       rc.sched_samp_end)
-        src = iter(self.train_batches(epoch))
+        sup = use_gt_p >= 1.0
+        extra = () if sup else (use_gt_p,)
+        k = self.k
+        src = self._chunk_source(epoch, k)
         if rc.prefetch_depth > 0:
             src = _prefetch(src, rc.prefetch_depth)
-        i = 0
-        for batch in src:
-            if use_gt_p >= 1.0:
-                self.state, stats = self.sup_step(
-                    self.state, batch, epoch, generator=self.generator)
+        i = chunks = 0
+        for payload, n in src:
+            if n == k and k > 1:
+                multi = self.multi_sup if sup else self.multi_ss
+                self.state, stats_k = multi(self.state, payload, epoch,
+                                            *extra, generator=self.generator)
+                # one read of the chunk's means, of weight k: every step
+                # of the chunk weighs in the epoch's averages as a single
+                # step does
+                tracker.update(stats_k, n=k, global_step=self.state.step)
             else:
-                self.state, stats = self.ss_step(
-                    self.state, batch, epoch, use_gt_p,
-                    generator=self.generator)
-            tracker.update(stats, global_step=self.state.step)
-            i += 1
-            if i % rc.print_every == 0:
-                Logger.log(f"epoch {epoch} "
-                           f"{tracker.progress_str(i, max(self.steps_per_epoch, i))}"
-                           f" (gt_p={use_gt_p:.2f})")
-        if i % rc.print_every != 0:
-            Logger.log(f"epoch {epoch} {tracker.progress_str(i, i)} "
-                       f"(gt_p={use_gt_p:.2f})")
+                step = self.sup_step if sup else self.ss_step
+                self.state, stats = step(self.state, payload, epoch, *extra,
+                                         generator=self.generator)
+                tracker.update(stats, global_step=self.state.step)
+            i += n
+            chunks += 1
+            if chunks % rc.print_every == 0:
+                self._log(f"epoch {epoch} "
+                          f"{tracker.progress_str(i, max(self.steps_per_epoch, i))}"
+                          f" (gt_p={use_gt_p:.2f})")
+        if chunks % rc.print_every != 0:
+            self._log(f"epoch {epoch} {tracker.progress_str(i, i)} "
+                      f"(gt_p={use_gt_p:.2f})")
         return tracker.averages().get("total_loss", float("nan"))
 
     def _run_val(self, epoch: int) -> float:
@@ -180,6 +271,8 @@ class Trainer:
         return float(np.mean(vals)) if vals else float("nan")
 
     def _ckpt(self, name: str, epoch: int):
+        if not self.lead:
+            return
         save_state(os.path.join(self.run_cfg.out_dir, name),
                    self.state.params, self.state.opt_state, epoch=epoch,
                    min_train_loss=self.min_train_loss,
@@ -192,13 +285,13 @@ class Trainer:
             if epoch in (rc.sched_samp_start, rc.sched_samp_end):
                 self.min_train_loss = float("inf")
                 self.min_val_loss = float("inf")
-            tracker = StatTracker(rc.out_dir)
+            tracker = StatTracker(rc.out_dir if self.lead else None)
             t0 = time.time()
             try:
                 train_loss = self._run_epoch(epoch, tracker)
             finally:
                 tracker.close()
-            Logger.log(f"epoch {epoch} done in {time.time() - t0:.1f}s "
+            self._log(f"epoch {epoch} done in {time.time() - t0:.1f}s "
                        f"train_loss={train_loss:.5f}")
             if np.isfinite(train_loss) and train_loss < self.min_train_loss:
                 self.min_train_loss = train_loss
@@ -208,7 +301,7 @@ class Trainer:
             if (self.val_batches is not None
                     and (epoch + 1) % rc.val_every == 0):
                 val_loss = self._run_val(epoch)
-                Logger.log(f"epoch {epoch} val_loss={val_loss:.5f}")
+                self._log(f"epoch {epoch} val_loss={val_loss:.5f}")
                 if np.isfinite(val_loss) and val_loss < self.min_val_loss:
                     self.min_val_loss = val_loss
                     self._ckpt("best_model.npz", epoch)

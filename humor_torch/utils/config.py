@@ -136,8 +136,8 @@ class TrainCLIConfig:
     val_every: int = 2
     save_every: int = 25
     print_every: int = 10
-    # the JAX package's k steps a dispatch; the port takes 0 or 1 (one
-    # step a batch: train.trainer.Trainer refuses more)
+    # k steps a chunk (train/step.make_multi_steps): the chunk's batches
+    # gathered at once, its stats read once; 0 = the trainer's auto k
     steps_per_dispatch: int = 0
     # batches built ahead of the steps by a daemon thread; 0: no thread
     prefetch_depth: int = 2
@@ -151,6 +151,10 @@ class TrainCLIConfig:
     # where training runs: the card unless "cpu" is asked for (raises
     # without a GPU)
     device: str = "cuda"
+    # under torchrun (WORLD_SIZE > 1): the process group's backend; ""
+    # is NCCL on the card and gloo on the CPU ("gloo" puts several ranks
+    # on one card)
+    dist_backend: str = ""
 
     def __post_init__(self):
         if self.model_compute_dtype:

@@ -1,7 +1,7 @@
 """Training statistics (port of humor_tpu/utils/stats.py): running
 averages, a JSONL mirror of every step's stats (stats.jsonl), and
-progress lines with an ETA. A step's stats dict of 0-d tensors reaches
-the host in one transfer."""
+progress lines with an ETA. A step's stats dict of 0-d tensors, or a
+k-step chunk's of (k,) tensors, reaches the host in one transfer."""
 
 from __future__ import annotations
 
@@ -56,9 +56,11 @@ class VectorMeter:
 
 
 def to_host(stats: Dict) -> Dict[str, float]:
-    """0-d tensors (one device) or numbers -> floats, in one transfer."""
+    """0-d tensors (one device) or numbers -> floats, in one transfer; a
+    k-step chunk's (k,) stats -> their means over the chunk, taken on the
+    device before that transfer."""
     keys = list(stats)
-    vals = [torch.as_tensor(stats[k]).detach().float().reshape(())
+    vals = [torch.as_tensor(stats[k]).detach().float().reshape(-1).mean()
             for k in keys]
     if not vals:
         return {}
@@ -86,6 +88,8 @@ class StatTracker:
             self.jsonl = None
 
     def update(self, stats: Dict, n: int = 1, global_step: int = 0):
+        """Enter one step's stats, or a chunk's (k,) stats as their mean
+        with weight n = k; one host read either way."""
         host = to_host(stats)
         for k, v in host.items():
             self.meters.setdefault(k, AverageMeter()).update(v, n)

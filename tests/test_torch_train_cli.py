@@ -95,7 +95,14 @@ def test_steps_in_flag_parses():
 
 
 def test_k_step_dispatch_raises(tmp_path):
-    """The JAX package's k train steps a dispatch has no port yet: the
-    Trainer refuses it, naming ROADMAP A3."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TC.main(_argv(CFG, tmp_path, "--steps-per-dispatch", "8"))
+    """k steps a chunk is ported: --steps-per-dispatch 2 trains in chunks
+    of 2 (one stats row a chunk, at its last step) and a 1-step
+    remainder; only a negative k raises."""
+    out = tmp_path / "k2"
+    TC.main(_argv(CFG, out, "--epochs", "1", "--steps-per-epoch", "3",
+                  "--steps-per-dispatch", "2"))
+    rows = _stats(out)
+    assert [r["step"] for r in rows] == [2, 3]
+    assert all(np.isfinite(r["total_loss"]) for r in rows)
+    with pytest.raises(ValueError, match="steps_per_dispatch"):
+        TC.main(_argv(CFG, tmp_path / "neg", "--steps-per-dispatch", "-1"))
