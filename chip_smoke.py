@@ -162,7 +162,28 @@ Phases, each of which fails the run (non-zero exit) on error:
      against world 1 (phase 8's tolerances, params equal across ranks);
      and the train CLI under torchrun at world 2 for one epoch at k = 4
      (rank 0 alone writes the log, the stats and the checkpoints). The
-     kernels are built once, here, before any rank starts.
+     kernels are built once, here, before any rank starts;
+ 13. the bf16 precision policy and the PROX fit's determinism: the
+     prior, posterior and decoder with compute_dtype="bfloat16" at full
+     width at 16 and 2,000 rows on the card against the CPU's plain bf16
+     (the norm of the gap at most BF16_HEAD_RATIO of the bf16-vs-f32
+     gap's), one product within BF16_PRODUCT_RTOL of the CPU's, f32 out,
+     in under half the f32 product's time (tensor cores); lbs in bf16
+     at 2,000 x 6,890: joints equal to the f32 call's, vertices within
+     BF16_SMPL_ULPS bf16 steps of f32 and of the CPU; the supervised
+     loss and gradient at 16 x 10 in four modes (f32, MLPs bf16, loss
+     bodies bf16, both) and the scheduled-sampling one with both, card
+     against the CPU (f32 to phase 8's limits, bf16 to BF16_LOSS_RTOL
+     and BF16_GRAD_GAP); the supervised step at 200 x 10 in the four
+     modes in turns, and scheduled sampling with both, ms a step and
+     peak memory; the train CLI and the AMASS joints fit CLI
+     (B=2 x 60, 30/70/70) with --model-compute-dtype bfloat16: the
+     checks of phase 3 and no kernel launched (a bf16 model rolls out
+     through the typed rollout); then the PROX fit at 5/10/10 twice, bit
+     for bit, once more under torch's deterministic mode (the ops it
+     names printed), twice with the atomic index_add_ the backward's
+     scatter replaced (printed), and that scatter timed beside it at
+     (960, 4096, 6890).
 
 Prints the kernels' JSON line, then the card's name and power limit,
 then the result line {"ok": true, "device": {...}} last. Imports nothing
@@ -170,8 +191,9 @@ of JAX or of the JAX package.
 
     python3 chip_smoke.py --phases 10 11
     python3 chip_smoke.py --phases 12
+    python3 chip_smoke.py --phases 13
 
-builds the kernels and runs only the named phases of 3-12, each path's
+builds the kernels and runs only the named phases of 3-13, each path's
 launches counted from zero, then prints each path's launches, the
 card's name and power limit and the seconds a phase; it skips phase 2
 and prints neither the kernels' line nor the result line.
@@ -1652,9 +1674,11 @@ def train_batch(bodies, batch, seed, device):
             "gender_ids": meta["gender_ids"].long() % 2}
 
 
-def train_grads(params, bodies, batch, device, sched, eps, cfg=None):
+def train_grads(params, bodies, batch, device, sched, eps, cfg=None,
+                loss_cfg=None):
     """(loss, grad_norm, grads) of one step's loss on `device` (the
-    default HuMoR configuration unless `cfg` is given)."""
+    default HuMoR configuration and loss unless `cfg` / `loss_cfg` are
+    given)."""
     import torch
 
     from humor_torch.losses.elbo import LossConfig
@@ -1662,6 +1686,7 @@ def train_grads(params, bodies, batch, device, sched, eps, cfg=None):
     from humor_torch.train import step as TS
 
     cfg = cfg or H.HumorConfig()
+    loss_cfg = loss_cfg or LossConfig()
     to = lambda x: x.to(device)
     models = {k: v.to(device) for k, v in bodies.items()}
     params = TS.tree_map(lambda p: to(p).detach().requires_grad_(True),
@@ -1669,11 +1694,11 @@ def train_grads(params, bodies, batch, device, sched, eps, cfg=None):
     batch = {k: ({n: to(v) for n, v in b.items()} if isinstance(b, dict)
                  else to(b)) for k, b in batch.items()}
     if sched:
-        fn = TS.sched_samp_loss_fn(cfg, LossConfig(), models)
+        fn = TS.sched_samp_loss_fn(cfg, loss_cfg, models)
         loss, _ = fn(params, batch, 10, 0.5, use_gt=SS_USE_GT,
                      eps=to(eps))
     else:
-        fn = TS.supervised_loss_fn(cfg, LossConfig(), models)
+        fn = TS.supervised_loss_fn(cfg, loss_cfg, models)
         loss, _ = fn(params, batch, 10, eps=to(eps))
     grads = torch.autograd.grad(loss, TS.tree_leaves(params))
     return (float(loss.detach()), float(TS.global_norm(grads)),
@@ -3118,6 +3143,441 @@ def run_parallel(models, device="cuda"):
                 for k in world2[0]["launches"]}}
 
 
+# phase 13: the bf16 precision policy (HumorConfig.compute_dtype, the
+# loss bodies' LossConfig.smpl_loss_dtype) and the PROX fit's determinism
+BF16_MLP_ROWS = (16, 2000)      # the MLPs' rows: a fit's candidates, a batch
+# card against the CPU, bf16: one product differs by f32 summation order
+# (|err| <= 1e-4 of the |a| |b| sum, f32 rounding of a 1,024-term sum);
+# through the stacked layers a value the two leave one f32 ulp apart
+# rounds to a neighbouring bf16 value (as between the port and JAX on the
+# CPU, tests/test_torch_bf16.py), and a few such values set the largest
+# gap, so a head is held by the norm of its gap to the CPU: at most
+# BF16_HEAD_RATIO of the norm of its bf16-vs-f32 gap
+BF16_PRODUCT_RTOL = 1e-4
+BF16_HEAD_RATIO = 0.5
+BF16_TC_SPEEDUP = 0.5          # the bf16 product's time over the f32 one's
+BF16_SMPL_ROWS, BF16_SMPL_CPU_ROWS = 2000, 200
+# the bf16 vertices against f32 and the card against the CPU, in bf16
+# steps (2^-8) of the largest |v|: the JAX package's 2e-2 m bound was set
+# on 8 bodies of 256 vertices; over 2,000 x 6,890 the largest gap is ~1
+# step (0.0195 m at |v| <= 4.4 m on an H100)
+BF16_SMPL_ULPS = 4
+# bf16 steps, card against the CPU: tests/test_torch_bf16.py's limits
+# against JAX (the loss 3e-4 relative, the whole gradient 2e-2 of its
+# norm; measured there 7.8e-5 and 1.2e-2)
+BF16_LOSS_RTOL = 3e-4
+BF16_GRAD_GAP = 2e-2
+BF16_MODES = {"f32": (None, ""), "mlp_bf16": ("bfloat16", ""),
+              "loss_bf16": (None, "bfloat16"),
+              "both_bf16": ("bfloat16", "bfloat16")}
+BF16_TIMED = 5                 # steps a turn at 200 x 10, two turns a mode
+BF16_FIT_ITERS = NUM_ITERS
+DET_ITERS = PROFILE_ITERS      # the PROX fits held bit for bit
+
+
+def _bf16_check(problems, ok, msg):
+    """Phase 13's checks: a failure is printed and added to `problems`,
+    and the phase fails at its end, so one run reports every sub-phase."""
+    if not ok:
+        print(f"chip_smoke: phase 13 check failed: {msg}", flush=True)
+        problems.append(msg)
+
+
+def _product_kernels(a, b):
+    """The device kernels one bf16 product enqueues (torch.profiler)."""
+    import torch
+
+    from humor_torch.ops import mlp as MLP
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        MLP._product_f32(a, b)
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def check_bf16_mlps(problems, device="cuda", rows=BF16_MLP_ROWS):
+    """13a: the prior, posterior and decoder in bf16 at full width, card
+    against the CPU's plain bf16 (the f32 product of the rounded inputs)
+    at each row count; one product alone; the product's kernels, f32
+    output and time against the f32 product's."""
+    import torch
+
+    from humor_torch.models import humor as H
+    from humor_torch.ops import mlp as MLP
+
+    params = H.init_params(H.HumorConfig(), torch.Generator().manual_seed(3))
+    to = lambda tree, dev: {k: [{n: v.to(dev) for n, v in layer.items()}
+                                for layer in mlp] for k, mlp in tree.items()}
+    card, cpu = to(params, device), params
+    bf = H.HumorConfig(compute_dtype="bfloat16")
+    f32 = H.HumorConfig()
+    d, L = bf.input_data_dim, bf.latent_size
+    rec = {}
+    for m in rows:
+        g = torch.Generator().manual_seed(m)
+        past = torch.randn(m, d, generator=g) * 0.5
+        cur = torch.randn(m, d, generator=g) * 0.5
+        z = torch.randn(m, L, generator=g)
+
+        def heads(cfg, p, dev):
+            x = lambda t: t.to(dev)
+            pm, pv = H.prior(cfg, p, x(past))
+            qm, qv = H.posterior(cfg, p, x(past), x(cur))
+            dec = H.decode(cfg, p, x(z), x(past))
+            return {"prior": torch.cat([pm, pv], -1).cpu(),
+                    "posterior": torch.cat([qm, qv], -1).cpu(),
+                    "decoder": torch.cat(list(dec.values()), -1).cpu()}
+
+        with torch.no_grad():
+            on_card = heads(bf, card, device)
+            on_cpu = heads(bf, cpu, "cpu")
+            on_card32 = heads(f32, card, device)
+        for name in on_card:
+            gap, gap32 = on_card[name] - on_cpu[name], (on_card[name]
+                                                        - on_card32[name])
+            r = {"card_vs_cpu_max": float(gap.abs().max()),
+                 "bf16_vs_f32_max": float(gap32.abs().max()),
+                 "norm_ratio": float(gap.norm() / gap32.norm())}
+            rec[f"{name}_m{m}"] = r
+            _bf16_check(problems, r["norm_ratio"] <= BF16_HEAD_RATIO,
+                        f"bf16 {name} at {m} rows, card vs CPU: {r}")
+    # one product: the first prior layer at the larger row count
+    w = params["prior"][1]["w"]
+    a = torch.randn(rows[-1], w.shape[0], generator=torch.Generator()
+                    .manual_seed(5))
+    ab, wb = a.bfloat16(), w.bfloat16()
+    with torch.no_grad():
+        out = MLP._product_f32(ab.to(device), wb.to(device))
+        ref = MLP._product_f32(ab, wb)
+    scale = (ab.float().abs() @ wb.float().abs()).clamp_min(1e-30)
+    prod_err = float(((out.cpu() - ref).abs() / scale).max())
+    below_bf16 = float((out - out.bfloat16().float()).abs().max())
+    ab, wb = ab.to(device), wb.to(device)
+    a32, w32 = a.to(device), w.to(device)
+    kernels = _product_kernels(ab, wb)
+    kernels32 = _product_kernels(a32, w32)
+    ms_bf16 = cuda_ms(lambda: MLP._product_f32(ab, wb), 50)
+    ms_f32 = cuda_ms(lambda: a32 @ w32, 50)
+    rec["product"] = {"shape": [rows[-1], *w.shape], "dtype": str(out.dtype),
+                      "err_over_abs_sum": prod_err,
+                      "bits_below_bf16": below_bf16, "kernels": kernels,
+                      "kernels_f32": kernels32, "ms_bf16": ms_bf16,
+                      "ms_f32": ms_f32}
+    print("[bf16 mlps] " + json.dumps(rec))
+    _bf16_check(problems, out.dtype == torch.float32 and below_bf16 > 0.0,
+                "the bf16 product's output is not f32 beyond bf16 precision")
+    _bf16_check(problems, prod_err <= BF16_PRODUCT_RTOL,
+                f"the bf16 product on the card parts from the CPU's: "
+                f"{prod_err}")
+    # tensor cores: under half the f32 product's time (TF32 is off, so
+    # f32 runs without them); the kernels' names are printed (a second
+    # profiler session in one process may record none)
+    _bf16_check(problems, ms_bf16 <= BF16_TC_SPEEDUP * ms_f32,
+                f"the bf16 product did not run as a tensor-core GEMM: "
+                f"{rec['product']}")
+    return rec
+
+
+def check_bf16_smpl(problems, device="cuda", rows=BF16_SMPL_ROWS,
+                    cpu_rows=BF16_SMPL_CPU_ROWS):
+    """13b: lbs in bf16 at `rows` x 6890 on the card: the joints equal
+    the f32 call's, the vertices and the first `cpu_rows` on the CPU
+    within BF16_SMPL_ULPS bf16 steps of the f32 call's and the card's."""
+    import torch
+
+    from humor_torch.body_model import smpl as S
+
+    body = train_bodies()["male"]
+    g = torch.Generator().manual_seed(6)
+    ro, pose = 0.3 * torch.randn(rows, 3, generator=g), 0.3 * torch.randn(
+        rows, 63, generator=g)
+    betas, trans = 0.5 * torch.randn(rows, 16, generator=g), torch.randn(
+        rows, 3, generator=g)
+    args = lambda dev, n: [t[:n].to(dev) for t in (ro, pose, betas, trans)]
+    card_body = body.to(device)
+    with torch.no_grad():
+        v32 = S.forward(card_body, *args(device, rows))
+        v16 = S.forward(card_body, *args(device, rows),
+                        compute_dtype=torch.bfloat16)
+        cpu16 = S.forward(body, *args("cpu", cpu_rows),
+                          compute_dtype=torch.bfloat16)
+    nj = 22
+    joints_equal = bool(torch.equal(v16.Jtr[:, :nj], v32.Jtr[:, :nj]))
+    vs32 = float((v16.v - v32.v).abs().max())
+    card_cpu = float((v16.v[:cpu_rows].cpu() - cpu16.v).abs().max())
+    ulp = 2.0 ** -8 * float(cpu16.v.abs().max())
+    rec = {"rows": rows, "verts": int(v16.v.shape[1]),
+           "joints_equal_f32": joints_equal, "verts_vs_f32": vs32,
+           "card_vs_cpu": card_cpu, "bf16_step_m": ulp,
+           "dtype": str(v16.v.dtype)}
+    print("[bf16 smpl] " + json.dumps(rec))
+    _bf16_check(problems, joints_equal and v16.v.dtype == torch.float32,
+                "bf16 lbs: joints differ from the f32 call's or the vertices "
+                "are not f32")
+    _bf16_check(problems, 0.0 < vs32 <= BF16_SMPL_ULPS * ulp,
+                f"bf16 lbs vertices {vs32} from f32 > {BF16_SMPL_ULPS} "
+                f"steps")
+    _bf16_check(problems, card_cpu <= BF16_SMPL_ULPS * ulp,
+                f"bf16 lbs card vs CPU {card_cpu} > {BF16_SMPL_ULPS} steps")
+    return rec
+
+
+def _bf16_cfgs(mode):
+    from humor_torch.losses.elbo import LossConfig
+    from humor_torch.models import humor as H
+
+    cd, ld = BF16_MODES[mode]
+    return H.HumorConfig(compute_dtype=cd), LossConfig(smpl_loss_dtype=ld)
+
+
+def compare_bf16_steps(problems, device="cuda", batch=TRAIN_CMP_B):
+    """13c (1): each mode's supervised loss and gradient, and the
+    scheduled-sampling one with both knobs, on the card against the CPU
+    (phase 8's data and draws): f32 to phase 8's limits, bf16 to
+    BF16_LOSS_RTOL and BF16_GRAD_GAP."""
+    import torch
+
+    from humor_torch.models import humor as H
+
+    bodies = train_bodies()
+    params = H.init_params(H.HumorConfig(), torch.Generator().manual_seed(3))
+    data = train_batch(bodies, batch, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    eps = {False: torch.randn(batch * TRAIN_T, 48, generator=g),
+           True: torch.randn(TRAIN_T, batch, 48, generator=g)}
+    rec = {}
+    cases = [(m, False) for m in BF16_MODES] + [("both_bf16", True)]
+    for mode, sched in cases:
+        cfg, loss_cfg = _bf16_cfgs(mode)
+        card = train_grads(params, bodies, data, device, sched, eps[sched],
+                           cfg, loss_cfg)
+        cpu = train_grads(params, bodies, data, "cpu", sched, eps[sched],
+                          cfg, loss_cfg)
+        num = sum(float(((a - b) ** 2).sum()) for a, b in zip(card[2], cpu[2]))
+        den = sum(float((b ** 2).sum()) for b in cpu[2])
+        r = {"loss_card": card[0], "loss_cpu": cpu[0],
+             "loss_rel": abs(card[0] - cpu[0]) / abs(cpu[0]),
+             "grad_gap": (num / den) ** 0.5,
+             "grad_max_scaled": max(
+                 float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(card[2], cpu[2]))}
+        rec[("sched_samp_" if sched else "supervised_") + mode] = r
+        if mode == "f32":
+            ok = (r["loss_rel"] <= TRAIN_LOSS_RTOL
+                  and r["grad_max_scaled"] <= TRAIN_GRAD_TOL)
+        else:
+            ok = (r["loss_rel"] <= BF16_LOSS_RTOL
+                  and r["grad_gap"] <= BF16_GRAD_GAP)
+        _bf16_check(problems, ok, f"{mode} step (sched {sched}) on the "
+                                  f"card parts from the CPU: {r}")
+    print("[bf16 train card vs cpu] " + json.dumps(rec))
+    return rec
+
+
+def time_bf16_steps(problems, device="cuda", batch=TRAIN_B,
+                    reps=BF16_TIMED, turns=2):
+    """13c (2): ms a supervised step at `batch` x 10 in each mode, the
+    modes in turns (f32, mlp, loss, both; twice), each mode's peak device
+    memory; then the scheduled-sampling step with both knobs."""
+    import torch
+
+    from humor_torch.train import step as TS
+
+    bodies = {k: v.to(device) for k, v in train_bodies().items()}
+    data = train_batch(bodies, batch, seed=1, device=device)
+    opt = TS.make_optimizer()
+    steps, states = {}, {}
+    for mode in BF16_MODES:
+        cfg, loss_cfg = _bf16_cfgs(mode)
+        states[mode] = TS.init_train_state(
+            cfg, opt, torch.Generator().manual_seed(0), device)
+        steps[mode] = TS.make_train_steps(cfg, loss_cfg, opt, bodies)[:2]
+    gen = torch.Generator(device=device).manual_seed(1)
+    rec = {m: {"ms": [], "peak_gb": 0.0, "losses": []} for m in BF16_MODES}
+    rec["sched_samp_both_bf16"] = {"ms": [], "peak_gb": 0.0, "losses": []}
+    runs = [(m, m, 0) for m in BF16_MODES] + [
+        ("sched_samp_both_bf16", "both_bf16", 1)]
+    for _ in range(turns):
+        for key, mode, which in runs:
+            step = steps[mode][which]
+            call = ((lambda s: step(s, data, 10, generator=gen)) if which == 0
+                    else (lambda s: step(s, data, 10, 0.5, generator=gen)))
+            states[mode], stats = call(states[mode])     # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                states[mode], stats = call(states[mode])
+                rec[key]["losses"].append(float(stats["total_loss"]))
+            torch.cuda.synchronize()
+            rec[key]["ms"].append(1e3 * (time.perf_counter() - t0) / reps)
+            rec[key]["peak_gb"] = max(rec[key]["peak_gb"],
+                                      torch.cuda.max_memory_allocated() / 1e9)
+    print("[bf16 train steps B=%d] " % batch + json.dumps(
+        {k: {"ms": v["ms"], "peak_gb": v["peak_gb"]} for k, v in rec.items()}))
+    _bf16_check(problems, all(all(map(math.isfinite, r["losses"]))
+                    for r in rec.values()),
+                "bf16 timed steps gave non-finite losses")
+    return rec
+
+
+def run_bf16_clis(models, device="cuda", batch=TRAIN_B, steps=4,
+                  iters=BF16_FIT_ITERS, seq_len=T):
+    """13d: the train CLI with --model-compute-dtype bfloat16 for one
+    epoch of `steps` steps at `batch`, then the fit CLI's AMASS joints fit
+    of B=2 processed sequences x `seq_len` at `iters` with the flag: the
+    checks of phase 3, and no rollout-kernel launch (the typed rollout
+    serves a bf16 model, as JAX's lax.scan serves its bf16 fit)."""
+    import tempfile
+
+    from humor_torch.train import cli as TC
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfgs = os.path.join(root, "configs")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        smplh = os.path.join(tmp, "smplh")
+        for gender, body in train_bodies().items():
+            write_body_npz(smplh, body, gender)
+        write_body_npz(smplh, models.body)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = TC.main(["@" + os.path.join(cfgs, "train_humor.cfg"),
+                       "--device", device, "--batch-size", str(batch),
+                       "--epochs", "1", "--steps-per-epoch", str(steps),
+                       "--print-every", str(steps),
+                       "--model-compute-dtype", "bfloat16",
+                       "--out", os.path.join(tmp, "train"),
+                       "--data-path", os.path.join(tmp, "no_amass"),
+                       "--smplh-root", smplh])
+        wall = time.perf_counter() - t0
+        launches["bf16_train_cli"] = read_launches()
+        print("[bf16 train cli] " + json.dumps({
+            "seconds": wall, "ms_a_step": 1e3 * wall / steps,
+            "min_train_loss": res["min_train_loss"],
+            "launches": launches["bf16_train_cli"]}))
+        if not math.isfinite(res["min_train_loss"]):
+            fail("the bf16 train CLI gave a non-finite loss")
+        data = write_processed_tree(os.path.join(tmp, "amass"), models.body,
+                                    device)
+        shapes = {k: (B, seq_len) + v[2:] if k != "betas" else v
+                  for k, v in FINAL_SHAPES.items()}
+        shapes["latent_motion"] = (B, seq_len - 1, 48)
+        launches["bf16_fit_cli"], _ = run_amass_fit(
+            "bf16 fit cli",
+            ["@" + os.path.join(cfgs, "fit_amass_joints.cfg"),
+             "--data-path", data, "--smplh-root", smplh,
+             "--seq-len", str(seq_len), "--batch-size", str(B),
+             "--num-iters-scale", "1", "--num-iters", *map(str, iters),
+             "--humor-ckpt", "", "--vposer-ckpt", "",
+             "--init-motion-prior-ckpt", "",
+             "--model-compute-dtype", "bfloat16",
+             "--out", os.path.join(tmp, "fit")], iters, device, shapes)
+    for path, n in launches.items():
+        if any(n.values()):
+            fail(f"the {path} path launched a kernel: {n}")
+    return launches
+
+
+def check_prox_determinism(problems, models, iters=DET_ITERS):
+    """13e: the PROX fit twice in one call, bit for bit; the path's ops
+    that PyTorch's deterministic mode names as non-deterministic (one
+    more fit with warn_only=True, its warnings listed); the
+    nearest-neighbour backward's scatter (index_put_ with accumulate)
+    timed beside the atomic index_add_ it replaced at (960, 4096, 6890),
+    and repeated bit for bit."""
+    import warnings
+
+    import torch
+
+    from humor_torch.fitting import optimizer as O
+    from humor_torch.ops import chamfer as CH
+
+    models = prox_models(models)
+    obs = make_prox_observations(models, seed=0)
+    runner = O.make_runner(prox_config(iters), models, device="cuda")
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        res = runner(obs)
+        torch.cuda.synchronize()
+        runs.append((res, read_launches()))
+    (a, la), (b, lb) = runs
+    differ = sorted(k for k in a.final
+                    if not torch.equal(a.final[k], b.final[k]))
+    differ += sorted(f"losses.{k}" for k in a.losses
+                     if not torch.equal(a.losses[k], b.losses[k]))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runner(obs)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sites = sorted({str(w.message).split("\n")[0][:200] for w in caught
+                    if "deterministic" in str(w.message)})
+    # the control: the same two fits with the atomic index_add_ that the
+    # backward's scatter replaced (printed, not held)
+    real = CH.scatter_rows
+    CH.scatter_rows = lambda index, rows, n: torch.zeros(
+        n, rows.shape[-1], dtype=rows.dtype, device=rows.device).index_add_(
+        0, index, rows)
+    try:
+        c1, c2 = runner(obs), runner(obs)
+        torch.cuda.synchronize()
+    finally:
+        CH.scatter_rows = real
+    control = sorted(k for k in c1.final
+                     if not torch.equal(c1.final[k], c2.final[k]))
+    # the backward's scatter at the fit's nearest-neighbour shape
+    x, y, _ = nn_inputs(960, N_POINTS, V_VERTS, seed=3)
+    _, idx = CH.nn_distance(x, y)
+    Bn, N = idx.shape
+    flat = (idx.long() + V_VERTS * torch.arange(Bn, device=idx.device)[
+        :, None]).reshape(-1)
+    rows = torch.randn(Bn * N, 3, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(7))
+    new = lambda: CH.scatter_rows(flat, rows, Bn * V_VERTS)
+    old = lambda: torch.zeros(Bn * V_VERTS, 3, device="cuda").index_add_(
+        0, flat, rows)
+    repeat_equal = bool(torch.equal(new(), new()))
+    scatter_gap = float((new() - old()).abs().max())
+    ms_new, ms_old = cuda_ms(new, 20), cuda_ms(old, 20)
+    rec = {"iters": list(iters), "fits_bit_equal": not differ,
+           "differ": differ, "launches": [la, lb],
+           "deterministic_mode_sites": sites,
+           "index_add_fits_differ_in": control,
+           "scatter": {"shape": [Bn, N, V_VERTS], "ms_index_put": ms_new,
+                       "ms_index_add": ms_old, "repeat_bit_equal":
+                       repeat_equal, "max_abs_vs_index_add": scatter_gap}}
+    print("[prox determinism] " + json.dumps(rec))
+    _bf16_check(problems, not differ and repeat_equal,
+                f"two PROX fits or two backward scatters differ: {differ}, "
+                f"{repeat_equal}")
+    return la
+
+
+def run_bf16(models, device="cuda"):
+    """Phase 13: 13a-d the bf16 policy, 13e the PROX fit's determinism;
+    returns each path's launches (the bf16 paths launch no rollout
+    kernel, by design)."""
+    t0 = time.perf_counter()
+    problems = []
+    check_bf16_mlps(problems, device)
+    check_bf16_smpl(problems, device)
+    compare_bf16_steps(problems, device)
+    time_bf16_steps(problems, device)
+    launches = run_bf16_clis(models, device)
+    launches["prox_fit_repeat"] = check_prox_determinism(problems, models)
+    print("[phase 13] " + json.dumps({"seconds": time.perf_counter() - t0}))
+    if problems:
+        fail(f"phase 13: {len(problems)} check(s) failed: {problems}")
+    return launches
+
+
 def run_fit(models):
     import torch
 
@@ -3164,7 +3624,7 @@ def run_fit(models):
 
 
 def phase_runners(models):
-    """Phases 3-12 by name, in order: each returns its paths' launches,
+    """Phases 3-13 by name, in order: each returns its paths' launches,
     every path counted from zero."""
     def rgb():
         out = {"rgb_fit": run_rgb_fit(models)}
@@ -3192,10 +3652,12 @@ def phase_runners(models):
         "11": lambda: run_configs(models),
         # the k-step dispatch, data-parallel training and the sharded fit
         "12": lambda: run_parallel(models),
+        # the bf16 precision policy and the PROX fit's determinism
+        "13": lambda: run_bf16(models),
     }
 
 
-PHASES = ("3", "4-5", "6", "7", "8", "9", "10", "11", "12")
+PHASES = ("3", "4-5", "6", "7", "8", "9", "10", "11", "12", "13")
 
 
 def card_line():
@@ -3281,9 +3743,9 @@ def main(argv=None):
     nn_err, nn_rec = check_nn()
     seconds["2"] = time.perf_counter() - t2
 
-    # 3.-12. the fits, the CLIs, training, the dataset CLIs, the trained
-    # fixture, the other configurations and the multi-device layer, each
-    # path counted from zero
+    # 3.-13. the fits, the CLIs, training, the dataset CLIs, the trained
+    # fixture, the other configurations, the multi-device layer and the
+    # bf16 policy, each path counted from zero
     by_path = run_phases(PHASES)
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in by_path["prox_fit"]}

@@ -21,14 +21,17 @@ def gendered_forward(models: Dict[str, SmplModel],
                      root_orient: torch.Tensor, pose_body: torch.Tensor,
                      betas: torch.Tensor, trans: torch.Tensor,
                      pose_hand: Optional[torch.Tensor] = None,
-                     order: Tuple[str, ...] = ("male", "female")
+                     order: Tuple[str, ...] = ("male", "female"),
+                     compute_dtype: Optional[torch.dtype] = None
                      ) -> SmplOutput:
     """SMPL for a batch with per-sample gender: only the genders in
-    `order` are evaluated (training uses male and female)."""
+    `order` are evaluated (training uses male and female).
+    compute_dtype: see smpl.lbs (the loss bodies' bf16 per-vertex
+    pipeline; the joints stay exact f32)."""
     v = j = None
     for gid, name in enumerate(order):
         out = forward(models[name], root_orient, pose_body, betas, trans,
-                      pose_hand)
+                      pose_hand, compute_dtype=compute_dtype)
         sel = (gender_ids == gid)[:, None, None]
         v = out.v if v is None else torch.where(sel, out.v, v)
         j = out.Jtr if j is None else torch.where(sel, out.Jtr, j)

@@ -163,13 +163,21 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, rest_joints: torch.Tensor,
 
 
 def lbs(model: SmplModel, betas: torch.Tensor, rot_mats: torch.Tensor,
-        trans: torch.Tensor, vert_ids: Optional[np.ndarray] = None
-        ) -> SmplOutput:
+        trans: torch.Tensor, vert_ids: Optional[np.ndarray] = None,
+        compute_dtype: Optional[torch.dtype] = None) -> SmplOutput:
     """Skinning forward from per-joint rotations (B, J, 3, 3).
 
     vert_ids: skin only these vertices (None = all). Joints always come
     from the full shaped template; the vertex joints (vtx_joint_ids) are
-    appended to the selection so Jtr keeps its layout."""
+    appended to the selection so Jtr keeps its layout.
+
+    compute_dtype (torch.bfloat16): the per-vertex pipeline (pose
+    blendshapes and skinning) runs in that type with bf16 products and
+    sums, at the JAX package's cast points, and the vertices come back in
+    f32 before `trans` is added; the shape blendshapes, the rest joints
+    and the kinematic chain stay f32, so the joints equal the f32 call's.
+    For the training loss bodies only: the vertices move by about one
+    bf16 step of their size (up to ~2e-2 m at 2,000 x 6,890)."""
     v_shaped = model.v_template + torch.einsum("bl,vcl->bvc", betas,
                                                model.shapedirs)
     rest_joints = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
@@ -193,12 +201,17 @@ def lbs(model: SmplModel, betas: torch.Tensor, rot_mats: torch.Tensor,
     pose_feat = (rot_mats[:, 1:] - eye).reshape(B, -1)
     posed_joints, Rw, t_rel = _rigid_transform_chain(rot_mats, rest_joints,
                                                      model.parents)
+    if compute_dtype is not None:
+        cd = compute_dtype
+        pose_feat, posedirs_s, v_shaped_s = (
+            pose_feat.to(cd), posedirs_s.to(cd), v_shaped_s.to(cd))
+        weights_s, Rw, t_rel = weights_s.to(cd), Rw.to(cd), t_rel.to(cd)
     v_posed = v_shaped_s + torch.matmul(pose_feat, posedirs_s).reshape(
         B, -1, 3)
     R_v = torch.einsum("vj,bjik->bvik", weights_s, Rw)
     t_v = torch.einsum("vj,bji->bvi", weights_s, t_rel)
     v_out = torch.einsum("bvik,bvk->bvi", R_v, v_posed) + t_v
-    v_out = v_out + trans[:, None, :]
+    v_out = v_out.to(betas.dtype) + trans[:, None, :]
     joints_out = posed_joints + trans[:, None, :]
     if n_extra > 0:
         if extra_start is not None:
@@ -221,9 +234,12 @@ def rest_root_joint(model: SmplModel, betas: torch.Tensor) -> torch.Tensor:
 def forward(model: SmplModel, root_orient: torch.Tensor,
             pose_body: torch.Tensor, betas: torch.Tensor,
             trans: torch.Tensor, pose_hand: Optional[torch.Tensor] = None,
-            vert_ids: Optional[np.ndarray] = None) -> SmplOutput:
+            vert_ids: Optional[np.ndarray] = None,
+            compute_dtype: Optional[torch.dtype] = None) -> SmplOutput:
     """root_orient (B, 3) aa or (B, 3, 3); pose_body (B, 63) aa or
-    (B, 21, 3, 3); hands flat unless pose_hand (B, 90) aa is given."""
+    (B, 21, 3, 3); hands flat unless pose_hand (B, 90) aa is given;
+    compute_dtype: see `lbs` (the loss bodies' bf16 per-vertex
+    pipeline)."""
     B = betas.shape[0]
     J = model.num_joints
     n_body = min(C.NUM_BODY_JOINTS, J - 1)
@@ -245,4 +261,4 @@ def forward(model: SmplModel, root_orient: torch.Tensor,
             mats.append(torch.eye(3, dtype=betas.dtype,
                                   device=betas.device).expand(B, n_rest, 3, 3))
     return lbs(model, betas, torch.cat(mats, dim=1), trans,
-               vert_ids=vert_ids)
+               vert_ids=vert_ids, compute_dtype=compute_dtype)

@@ -4,7 +4,9 @@ Entry points run on the card unless the caller asks for the CPU: the
 default device is "cuda", and asking for it without a GPU raises instead
 of quietly running on the CPU. Float32 matmuls are pinned to full f32
 (no TF32), the counterpart of JAX's `precision=HIGHEST`: TF32 keeps about
-three digits, and the 59-step rollout chain amplifies that.
+three digits, and the 59-step rollout chain amplifies that. bf16 GEMMs
+(the bf16 precision policy) reduce split-K partial sums in f32, as JAX
+accumulates them, not in bf16.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ def resolve_device(device="cuda") -> torch.device:
     (the default) and no GPU is present."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

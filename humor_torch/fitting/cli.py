@@ -66,12 +66,8 @@ def load_models(cfg):
     from humor_torch.models import vposer as vp
     from humor_torch.utils import import_torch as IT
 
-    if cfg.model_compute_dtype:
-        raise NotImplementedError(
-            "humor_torch runs the HuMoR MLPs in float32 only "
-            f"(--model-compute-dtype {cfg.model_compute_dtype!r})")
     body = load_body(cfg.smplh_root)
-    hcfg = H.HumorConfig()
+    hcfg = H.HumorConfig(compute_dtype=cfg.model_compute_dtype or None)
     if cfg.humor_ckpt and os.path.exists(cfg.humor_ckpt):
         if cfg.humor_ckpt.endswith((".pth", ".pt")):
             humor_params = IT.load_humor_checkpoint(cfg.humor_ckpt)

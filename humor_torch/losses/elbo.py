@@ -21,6 +21,7 @@ from humor_torch.body_model.gendered import gendered_forward
 from humor_torch.ops import transforms
 
 CONTACT_THRESH = 0.5
+SMPL_LOSS_DTYPES = {"": None, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -52,6 +53,19 @@ class LossConfig:
     smpl_mesh_loss: float = 1.0
     smpl_joint_consistency_loss: float = 1.0
     smpl_vert_consistency_loss: float = 0.0
+
+    # "bfloat16" runs the loss bodies' per-vertex skinning in bf16 (the
+    # joints stay exact f32: smpl.lbs compute_dtype); "" = f32
+    smpl_loss_dtype: str = ""
+
+    def __post_init__(self):
+        if self.smpl_loss_dtype not in SMPL_LOSS_DTYPES:
+            raise ValueError(f"smpl_loss_dtype {self.smpl_loss_dtype!r} not "
+                             f"in {tuple(SMPL_LOSS_DTYPES)}")
+
+    @property
+    def smpl_compute_dtype(self) -> Optional[torch.dtype]:
+        return SMPL_LOSS_DTYPES[self.smpl_loss_dtype]
 
     @property
     def regr_weights(self) -> Dict[str, float]:
@@ -175,15 +189,18 @@ def elbo_loss(cfg: LossConfig,
         p_orient = transforms.rotmat_to_aa(pred["root_orient"].reshape(N, 3, 3))
         p_pose = transforms.rotmat_to_aa(
             pred["pose_body"].reshape(N, nb, 3, 3)).reshape(N, -1)
+        cd = cfg.smpl_compute_dtype
         pred_body = gendered_forward(smpl_models, gender_ids, p_orient,
-                                     p_pose, betas, pred["trans"])
+                                     p_pose, betas, pred["trans"],
+                                     compute_dtype=cd)
         with torch.no_grad():
             g_orient = transforms.rotmat_to_aa(
                 gt["root_orient"].reshape(N, 3, 3))
             g_pose = transforms.rotmat_to_aa(
                 gt["pose_body"].reshape(N, nb, 3, 3)).reshape(N, -1)
             gt_body = gendered_forward(smpl_models, gender_ids, g_orient,
-                                       g_pose, betas, gt["trans"])
+                                       g_pose, betas, gt["trans"],
+                                       compute_dtype=cd)
         pj = pred_body.Jtr[:, :C.NUM_SMPL_JOINTS]
         gj = gt_body.Jtr[:, :C.NUM_SMPL_JOINTS]
         if cfg.smpl_joint_loss > 0.0:

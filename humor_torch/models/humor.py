@@ -33,7 +33,7 @@ from humor_torch.models.canonical import (
 )
 from humor_torch.models.state import StateSpec, make_specs
 from humor_torch.ops import transforms
-from humor_torch.ops.mlp import init_mlp, mlp_apply
+from humor_torch.ops.mlp import init_mlp, mlp_apply, resolve_compute_dtype
 
 MLP_WIDTH = 1024
 
@@ -49,6 +49,10 @@ class HumorConfig:
     model_data_config: str = "smpl+joints+contacts"
     # scheduled sampling feeds its own predictions back without gradient
     detach_sched_samp: bool = True
+    # the MLPs' products: None = f32, "bfloat16" = bf16 inputs with f32
+    # accumulation and outputs (ops.mlp); geometry, canonicalization and
+    # the rest stay f32
+    compute_dtype: Optional[str] = None
 
     def __post_init__(self):
         if self.in_rot_rep not in state_lib.IN_ROT_REPS:
@@ -63,6 +67,7 @@ class HumorConfig:
                 f"{tuple(state_lib.RETURN_CONFIGS)}")
         if self.steps_in < 1:
             raise ValueError(f"steps_in {self.steps_in} < 1")
+        resolve_compute_dtype(self.compute_dtype)
 
     @property
     def specs(self) -> Tuple[StateSpec, StateSpec, StateSpec, bool]:
@@ -124,7 +129,8 @@ def init_params(cfg: HumorConfig, generator: torch.Generator,
 def posterior(cfg: HumorConfig, params: Dict, past_in: torch.Tensor,
               t_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """q(z | x_{t-1}, x_t): (mean, var)."""
-    h = mlp_apply(params["encoder"], torch.cat([past_in, t_in], dim=-1))
+    h = mlp_apply(params["encoder"], torch.cat([past_in, t_in], dim=-1),
+                  compute_dtype=cfg.compute_dtype)
     mean, logvar = torch.chunk(h, 2, dim=-1)
     return mean, torch.exp(logvar)
 
@@ -137,7 +143,7 @@ def prior(cfg: HumorConfig, params: Dict, past_in: torch.Tensor
         shape = (*past_in.shape[:-1], cfg.latent_size)
         return (torch.zeros(shape, dtype=past_in.dtype, device=past_in.device),
                 torch.ones(shape, dtype=past_in.dtype, device=past_in.device))
-    h = mlp_apply(params["prior"], past_in)
+    h = mlp_apply(params["prior"], past_in, compute_dtype=cfg.compute_dtype)
     mean, logvar = torch.chunk(h, 2, dim=-1)
     return mean, torch.exp(logvar)
 
@@ -160,7 +166,7 @@ def decode(cfg: HumorConfig, params: Dict, z: torch.Tensor,
     contact logits). With output_delta the outputs are residuals on the
     newest past frame (R_delta @ R_prev for rotations), else absolute."""
     raw = mlp_apply(params["decoder"], torch.cat([past_in, z], dim=-1),
-                    skip_dim=cfg.latent_size)
+                    skip_dim=cfg.latent_size, compute_dtype=cfg.compute_dtype)
     out_parts = cfg.out_spec.unpack(raw)
     batch_shape = past_in.shape[:-1]
     newest = past_in[..., (cfg.steps_in - 1) * cfg.input_data_dim:]

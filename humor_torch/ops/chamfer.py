@@ -127,6 +127,17 @@ def nn_forward(xyz1: torch.Tensor, xyz2: torch.Tensor
     return _nn_cuda(xyz1, xyz2)
 
 
+def scatter_rows(index: torch.Tensor, rows: torch.Tensor, n: int
+                 ) -> torch.Tensor:
+    """out (n, C) with out[i] = sum of rows[k] where index[k] == i, in a
+    fixed order: `index_put_(accumulate=True)` sorts the indices and sums
+    each run of duplicates in one pass on the card, where `index_add_`
+    adds by atomics in no fixed order (a fit's result then varies between
+    calls)."""
+    out = torch.zeros(n, rows.shape[-1], dtype=rows.dtype, device=rows.device)
+    return out.index_put_((index,), rows, accumulate=True)
+
+
 class NNDistance(torch.autograd.Function):
     """(xyz1, xyz2) -> (dist (B, N), idx (B, N) int32); differentiable in
     both clouds, idx has no gradient."""
@@ -148,8 +159,7 @@ class NNDistance(torch.autograd.Function):
                 ).reshape(-1)
         nn = xyz2.reshape(B * M, 3).index_select(0, flat).reshape(B, N, 3)
         diff = 2.0 * (xyz1 - nn) * g_dist[..., None]
-        g2 = torch.zeros(B * M, 3, dtype=xyz2.dtype, device=xyz2.device)
-        g2.index_add_(0, flat, -diff.reshape(B * N, 3))
+        g2 = scatter_rows(flat, -diff.reshape(B * N, 3), B * M)
         return diff, g2.reshape(B, M, 3)
 
 

@@ -193,7 +193,8 @@ def main(argv=None) -> Dict[str, float]:
         out_rot_rep=cfg.out_rot_rep,
         model_data_config=cfg.model_data_config,
         conditional_prior=cfg.conditional_prior,
-        output_delta=cfg.output_delta, steps_in=cfg.model_steps_in)
+        output_delta=cfg.output_delta, steps_in=cfg.model_steps_in,
+        compute_dtype=cfg.model_compute_dtype or None)
     smpl_w = lambda w: w if cfg.use_smpl_losses else 0.0
     loss_cfg = LossConfig(
         kl_loss=cfg.kl_loss, kl_loss_anneal_start=cfg.kl_loss_anneal_start,

@@ -89,6 +89,13 @@ def parse_into(cls: Type[T], argv: Optional[Sequence[str]] = None,
     return cls(**kwargs)
 
 
+def _check_compute_dtype(name: str) -> None:
+    """--model-compute-dtype: raises on a name the port does not take."""
+    from humor_torch.ops.mlp import resolve_compute_dtype
+
+    resolve_compute_dtype(name)
+
+
 @dataclass
 class TrainCLIConfig:
     # data
@@ -114,7 +121,8 @@ class TrainCLIConfig:
     model_use_smpl_joint_inputs: bool = False
     # past-window length; the port runs 1 only
     model_steps_in: int = 1
-    # the JAX package's low-precision knob; the port runs float32 only
+    # the HuMoR MLPs' products: "bfloat16" (bf16 inputs, f32 accumulation
+    # and outputs) or "" (f32)
     model_compute_dtype: str = ""
     # loss
     kl_loss: float = 0.0004
@@ -157,11 +165,7 @@ class TrainCLIConfig:
     dist_backend: str = ""
 
     def __post_init__(self):
-        if self.model_compute_dtype:
-            raise NotImplementedError(
-                f"--model-compute-dtype {self.model_compute_dtype!r}: "
-                "humor_torch trains in float32 only (ROADMAP 'Not to "
-                "port')")
+        _check_compute_dtype(self.model_compute_dtype)
 
 
 @dataclass
@@ -222,8 +226,9 @@ class FitCLIConfig:
     init_motion_prior_ckpt: str = ""
     smplh_root: str = "./body_models/smplh"
     gt_body_type: str = "smplh"
-    # the JAX package's low-precision HuMoR matmul knob: the port runs
-    # float32 only and refuses any other value
+    # "bfloat16" runs the HuMoR MLPs' products in bf16 with f32
+    # accumulation and outputs (the stage-3 rollout then goes through the
+    # typed rollout, not the f32 kernels); "" = float32
     model_compute_dtype: str = ""
     # optimization
     lr: float = 1.0
@@ -283,6 +288,9 @@ class FitCLIConfig:
     # where the fit runs: the card unless "cpu" is asked for (raises
     # without a GPU)
     device: str = "cuda"
+
+    def __post_init__(self):
+        _check_compute_dtype(self.model_compute_dtype)
 
     def stage_weights(self):
         """-> 3 StageWeights from the per-stage weight lists."""

@@ -377,15 +377,16 @@ def test_trainer_chunk_source_parity(dataset, tmp_path):
 # The trainer's loop (tests/test_trainer_loop.py)
 # ---------------------------------------------------------------------------
 
-def _batch_fn(n, b=4, t=5):
-    cache = {}
+_BATCHES = {}     # (seed, b, t) -> batch, shared by the trainer tests
 
+
+def _batch_fn(n, b=4, t=5):
     def gen(epoch):
         for i in range(n):
-            s = epoch * 1000 + i
-            if s not in cache:
-                cache[s] = _to_torch(_jax_batch(s, b, t))
-            yield cache[s]
+            s = (epoch * 1000 + i, b, t)
+            if s not in _BATCHES:
+                _BATCHES[s] = _to_torch(_jax_batch(*s))
+            yield _BATCHES[s]
     return gen
 
 

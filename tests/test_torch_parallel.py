@@ -4,7 +4,8 @@ differentiable gather, and data-parallel training at world 2 over gloo
 in 2 processes against world 1 in this one, with the same weights and
 the same global draws (single steps, k-step chunks and the trainer over
 the device store's chunk source). Mirrors tests/test_train_multi.py's
-sharded k-step case.
+sharded k-step case. The gather, the four step cases and the trainer run
+in one launch of 2 ranks for the module (`world2`).
 
 Limits, each beside the gap measured on the CPU (HuMoR 1024/48, 8
 windows of 4 transitions, Adamax at lr 1e-4):
@@ -96,6 +97,41 @@ def _check_params(ranks, ref, grads, steps):
         assert (a - b).abs().max() <= 2 * steps * LR + 1e-7
 
 
+def _step_case(phase, k):
+    """(batches, draws) of a step case: two single steps, or a chunk of
+    3 (other draws)."""
+    if k == 1:
+        return [_batch(s) for s in range(2)], _draws(phase, 2)
+    return [_batch(s) for s in range(3)], _draws(phase, 3, seed=1)
+
+
+CASES = [(phase, k) for k in (1, 3) for phase in ("sup", "ss")]
+
+
+@pytest.fixture(scope="module")
+def processed():
+    return _make_processed()
+
+
+@pytest.fixture(scope="module")
+def world2(params, processed, tmp_path_factory):
+    """Every world-2 rank function of this module in one launch: the
+    gather, the step cases (CASES; the supervised single steps with the
+    SMPL losses) and the trainer (writing under `out`). Returns rank
+    0's and rank 1's results by name."""
+    out = str(tmp_path_factory.mktemp("dp") / "w2")
+    todo = [("gather_grad", (3,))]
+    for phase, k in CASES:
+        batches, draws = _step_case(phase, k)
+        todo.append(("train_steps", (phase, params, batches, draws, LR, k,
+                                     phase == "sup" and k == 1)))
+    todo.append(("trainer_fit", (processed, out, 2)))
+    ranks = launch.spawn(W.jobs, 2, args=(todo,), timeout=TIMEOUT)
+    names = ["gather"] + CASES + ["trainer"]
+    return {"out": out, **{n: [r[i] for r in ranks]
+                           for i, n in enumerate(names)}}
+
+
 def test_shard_batch_rows_and_padding():
     """A rank's contiguous rows along the batch axis (axis 1 for a
     k-stacked chunk); a batch W does not divide raises."""
@@ -114,10 +150,10 @@ def test_shard_batch_rows_and_padding():
     assert P.pad_to_multiple(10, 4) == 12 and P.pad_to_multiple(8, 4) == 8
 
 
-def test_gather_backward_sums_every_ranks_cotangent():
+def test_gather_backward_sums_every_ranks_cotangent(world2):
     """all_gather_batch rebuilds the batch on every rank; a term charged
     on rank 0 alone gives each rank the gradient of its own rows, once."""
-    res = launch.spawn(W.gather_grad, 2, args=(3,), timeout=TIMEOUT)
+    res = world2["gather"]
     want = torch.tensor([[0.0], [1.0], [2.0], [10.0], [11.0], [12.0]])
     for r, out in enumerate(res):
         assert torch.equal(out["gathered"], want)
@@ -126,17 +162,15 @@ def test_gather_backward_sums_every_ranks_cotangent():
 
 
 @pytest.mark.parametrize("phase", ["sup", "ss"])
-def test_dp_steps_world2_match_world1(params, phase):
+def test_dp_steps_world2_match_world1(params, world2, phase):
     """Two single steps at world 2 (each rank its 4 rows, the global
     draws) against world 1: losses, the first step's averaged gradient,
     the params; the supervised phase with the SMPL losses on synthetic
     gendered bodies."""
-    batches = [_batch(s) for s in range(2)]
-    draws = _draws(phase, 2)
+    batches, draws = _step_case(phase, 1)
     smpl = phase == "sup"
     ref = W.train_steps(None, phase, params, batches, draws, LR, 1, smpl)
-    ranks = launch.spawn(W.train_steps, 2, args=(
-        phase, params, batches, draws, LR, 1, smpl), timeout=TIMEOUT)
+    ranks = world2[(phase, 1)]
     for r in ranks:
         torch.testing.assert_close(r["losses"], ref["losses"], rtol=1e-5,
                                    atol=0)
@@ -147,33 +181,29 @@ def test_dp_steps_world2_match_world1(params, phase):
 
 
 @pytest.mark.parametrize("phase", ["sup", "ss"])
-def test_dp_multi_steps_world2(params, phase):
+def test_dp_multi_steps_world2(params, world2, phase):
     """A chunk of 3 steps at world 2 (shard_batch on the chunk's axis 1)
     against the same chunk at world 1 (tests/test_train_multi.py's
     sharded k-step case, held to values)."""
-    batches = [_batch(s) for s in range(3)]
-    draws = _draws(phase, 3, seed=1)
+    batches, draws = _step_case(phase, 3)
     ref = W.train_steps(None, phase, params, batches, draws, LR, 3)
     grads = W.train_steps(None, phase, params, batches[:1], draws[:1], LR,
                           1)["grads"]
-    ranks = launch.spawn(W.train_steps, 2, args=(
-        phase, params, batches, draws, LR, 3), timeout=TIMEOUT)
+    ranks = world2[(phase, 3)]
     assert ranks[0]["losses"].shape == (3,)
     torch.testing.assert_close(ranks[0]["losses"], ref["losses"], rtol=1e-5,
                                atol=0)
     _check_params(ranks, ref, grads, 3)
 
 
-def test_dp_trainer_world2_matches_world1(tmp_path):
+def test_dp_trainer_world2_matches_world1(tmp_path, processed, world2):
     """The trainer over the store's chunk source at k = 2 (2 epochs of 4
     steps, supervised then scheduled sampling, with validation) at world
     2 against world 1; rank 0 alone writes the stats and checkpoints."""
-    processed = _make_processed()
     ref = W.trainer_fit(None, processed, str(tmp_path / "w1"), 2)
     assert ref["ranks"] == 1 and ref["step"] == 8
-    out = str(tmp_path / "w2")
-    ranks = launch.spawn(W.trainer_fit, 2, args=(processed, out, 2),
-                         timeout=TIMEOUT)
+    out = world2["out"]
+    ranks = world2["trainer"]
     assert [r["ranks"] for r in ranks] == [2, 2]
     for r in ranks[1:]:
         for a, b in zip(r["params"], ranks[0]["params"]):

@@ -2,7 +2,7 @@
 epoch) on the synthetic sequences and bodies: configs/train_humor.cfg
 through the supervised and scheduled-sampling phases,
 configs/train_humor_qual.cfg with its SMPL-joint feedback, a resume from
-the final checkpoint, and the flags the port refuses."""
+the final checkpoint, and the flag values the port refuses."""
 
 import json
 import os
@@ -82,9 +82,11 @@ def test_train_cli_needs_a_gpu_unless_cpu_is_asked(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--model-compute-dtype", "float16"],
-                                   ["--model-compute-dtype", "bfloat16"]])
+                                   ["--model-compute-dtype", "int8"]])
 def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The port takes --model-compute-dtype bfloat16 (or none): any other
+    name raises."""
+    with pytest.raises(ValueError, match="compute dtype"):
         parse_into(TrainCLIConfig, ["@" + CFG, *flags])
 
 

@@ -69,8 +69,9 @@ def test_elbo_matches_jax(smpl):
                             betas=jnp.asarray(betas),
                             smpl_models=SMPL_J if smpl else None)
 
-    (lj, sj), gj = jax.value_and_grad(jfn, argnums=(0, 1, 2),
-                                      has_aux=True)(pred, post, prior)
+    # jitted: one program to compile, not each op of the SMPL forward
+    (lj, sj), gj = jax.jit(jax.value_and_grad(
+        jfn, argnums=(0, 1, 2), has_aux=True))(pred, post, prior)
     t = lambda x: torch.as_tensor(x).requires_grad_(True)
     p_t = {k: t(v) for k, v in pred.items()}
     q_t, pr_t = tuple(t(x) for x in post), tuple(t(x) for x in prior)

@@ -1,12 +1,15 @@
 """humor_torch's windows-sharded test-time fit on the CPU (mirroring
 tests/test_tto_sharded.py): make_runner(..., mesh=) with the 8 windows
 split over 4 gloo ranks in 4 processes (2 windows a rank, so the overlap
-terms pair windows within a rank and across ranks), against the port's
-plain runner and against the JAX package's sharded runner on its
-8-device CPU mesh; the early exit under sharding; a batch the ranks do
-not divide. The configuration is the JAX test's: joints3d with the
-overlap consistency in stages 1-2, the zoom search, no stage-3 init
-tuning, 2/2/2 iterations, at B = 8 windows of T = 4 frames sharing 2.
+terms pair windows within a rank and across ranks, and the middle ranks
+exchange with both neighbours), against the port's plain runner and
+against the JAX package's sharded runner on its 8-device CPU mesh; the
+early exit under sharding at 2 ranks (both early-exit configurations in
+one launch: stopping together needs only two ranks); a batch the ranks
+do not divide. The plain fit is run once for the module. The
+configuration is the JAX test's: joints3d with the overlap consistency
+in stages 1-2, the zoom search, no stage-3 init tuning, 2/2/2
+iterations, at B = 8 windows of T = 4 frames sharing 2.
 
 Limits, each beside the gap measured on the CPU:
   * sharded against plain, in the port: loss histories within 5e-6
@@ -106,8 +109,7 @@ def _cfg(opt, energies, **kw):
                          lbfgs_linesearch="zoom", **kw)
 
 
-def _sharded(cfg, tm, obs_t, world=WORLD):
-    res = launch.spawn(W.fit, world, args=(cfg, tm, obs_t), timeout=TIMEOUT)
+def _same_on_every_rank(res):
     for r in res[1:]:           # every rank holds the whole result
         for part in ("final", "losses"):
             for k, v in res[0][part].items():
@@ -115,17 +117,40 @@ def _sharded(cfg, tm, obs_t, world=WORLD):
     return res[0]
 
 
+EXIT_TOLS = {"jax_test_tols": dict(lbfgs_tol_grad=1e-7, lbfgs_tol_change=1e-9),
+             "stops_at_once": dict(lbfgs_tol_grad=1e9)}
+
+
+@pytest.fixture(scope="module")
+def plain(models, observed):
+    """The port's plain fit under the JAX test's configuration."""
+    return TO.make_runner(_cfg(TO, TE), models[1], device="cpu")(observed[1])
+
+
+@pytest.fixture(scope="module")
+def early_exit(models, observed):
+    """Each early-exit configuration: (its sharded fit at 2 ranks, both
+    fitted in one launch; its plain fit)."""
+    _, tm = models
+    _, obs_t = observed
+    cfgs = [dataclasses.replace(_cfg(TO, TE), **t) for t in EXIT_TOLS.values()]
+    ranks = launch.spawn(W.fits, 2, args=(cfgs, tm, obs_t), timeout=TIMEOUT)
+    shard = [_same_on_every_rank([r[i] for r in ranks])
+             for i in range(len(cfgs))]
+    plains = [TO.make_runner(c, tm, device="cpu")(obs_t) for c in cfgs]
+    return dict(zip(EXIT_TOLS, zip(shard, plains)))
+
+
 def _close(a, b, atol, rtol, what):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=atol,
                                rtol=rtol, err_msg=what)
 
 
-def test_sharded_matches_unsharded_and_jax(models, observed):
+def test_sharded_matches_unsharded_and_jax(models, observed, plain):
     jm, tm = models
     obs_j, obs_t = observed
-    cfg = _cfg(TO, TE)
-    plain = TO.make_runner(cfg, tm, device="cpu")(obs_t)
-    shard = _sharded(cfg, tm, obs_t)
+    shard = _same_on_every_rank(launch.spawn(
+        W.fit, WORLD, args=(_cfg(TO, TE), tm, obs_t), timeout=TIMEOUT))
     for st in ("stage1", "stage2", "stage3"):
         assert shard["losses"][st].shape == (2,)
         _close(shard["losses"][st], plain.losses[st], 0.0, 5e-6, st)
@@ -144,30 +169,23 @@ def test_sharded_matches_unsharded_and_jax(models, observed):
         _close(shard["losses"][st], jres.losses[st], 1e-3, 2e-2, st)
 
 
-@pytest.mark.parametrize("tols", [
-    dict(lbfgs_tol_grad=1e-7, lbfgs_tol_change=1e-9),
-    dict(lbfgs_tol_grad=1e9)], ids=["jax_test_tols", "stops_at_once"])
-def test_sharded_early_exit(models, observed, tols):
+@pytest.mark.parametrize("tols", list(EXIT_TOLS))
+def test_sharded_early_exit(early_exit, plain, tols):
     """The convergence early exit decides on norms reduced over ranks, so
     every rank stops together: at the JAX test's tolerances (the exit
     armed, not reached in 2 iterations) and at a gradient tolerance that
     stops every stage after its first iteration (the history's tail is
     the final value). Finite, and within the JAX test's limits of the
     plain runner's result."""
-    _, tm = models
-    _, obs_t = observed
-    cfg = dataclasses.replace(_cfg(TO, TE), **tols)
-    plain = TO.make_runner(cfg, tm, device="cpu")(obs_t)
-    shard = _sharded(cfg, tm, obs_t)
+    shard, ref = early_exit[tols]
     for k in KEYS:
         assert torch.isfinite(shard["final"][k]).all()
-        _close(shard["final"][k], plain.final[k], 2e-3, 1e-2, k)
+        _close(shard["final"][k], ref.final[k], 2e-3, 1e-2, k)
     for st in ("stage1", "stage2", "stage3"):
-        _close(shard["losses"][st], plain.losses[st], 0.0, 5e-6, st)
-    if tols.get("lbfgs_tol_grad") == 1e9:
+        _close(shard["losses"][st], ref.losses[st], 0.0, 5e-6, st)
+    if tols == "stops_at_once":
         # each stage stopped after 1 of its 2 iterations
-        full = TO.make_runner(_cfg(TO, TE), tm, device="cpu")(obs_t)
-        assert (full.final["trans"] - shard["final"]["trans"]).abs().max() \
+        assert (plain.final["trans"] - shard["final"]["trans"]).abs().max() \
             > 1e-4
 
 

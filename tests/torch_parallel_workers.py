@@ -17,6 +17,17 @@ def fit(mesh, cfg, models, observed):
             "per_stage": res.per_stage}
 
 
+def fits(mesh, cfgs, models, observed):
+    """The sharded fit of the whole observation under each config."""
+    return [fit(mesh, cfg, models, observed) for cfg in cfgs]
+
+
+def jobs(mesh, todo):
+    """Several rank functions of this module in one process group:
+    `todo` is a list of (name, args); returns their results in order."""
+    return [globals()[name](mesh, *args) for name, args in todo]
+
+
 def fit_odd_batch(mesh, cfg, models, observed):
     """The sharded fit of a batch the ranks do not divide: the error."""
     try:
