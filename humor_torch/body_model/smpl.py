@@ -19,6 +19,7 @@ import torch
 
 from humor_torch.body_model import constants as C
 from humor_torch.ops import transforms
+from humor_torch.utils import profiling as PR
 
 
 @dataclass(frozen=True)
@@ -240,25 +241,28 @@ def forward(model: SmplModel, root_orient: torch.Tensor,
     (B, 21, 3, 3); hands flat unless pose_hand (B, 90) aa is given;
     compute_dtype: see `lbs` (the loss bodies' bf16 per-vertex
     pipeline)."""
-    B = betas.shape[0]
-    J = model.num_joints
-    n_body = min(C.NUM_BODY_JOINTS, J - 1)
-    if root_orient.dim() == 2:
-        root_mat = transforms.aa_to_rotmat(root_orient)[:, None]
-    else:
-        root_mat = root_orient.reshape(B, 1, 3, 3)
-    if pose_body.dim() == 2:
-        body_mat = transforms.aa_to_rotmat(pose_body.reshape(B, n_body, 3))
-    else:
-        body_mat = pose_body.reshape(B, n_body, 3, 3)
-    mats = [root_mat, body_mat]
-    n_rest = J - 1 - n_body
-    if n_rest > 0:
-        if pose_hand is not None:
-            mats.append(transforms.aa_to_rotmat(
-                pose_hand.reshape(B, n_rest, 3)))
+    with PR.span("smpl"):
+        B = betas.shape[0]
+        J = model.num_joints
+        n_body = min(C.NUM_BODY_JOINTS, J - 1)
+        if root_orient.dim() == 2:
+            root_mat = transforms.aa_to_rotmat(root_orient)[:, None]
         else:
-            mats.append(torch.eye(3, dtype=betas.dtype,
-                                  device=betas.device).expand(B, n_rest, 3, 3))
-    return lbs(model, betas, torch.cat(mats, dim=1), trans,
-               vert_ids=vert_ids, compute_dtype=compute_dtype)
+            root_mat = root_orient.reshape(B, 1, 3, 3)
+        if pose_body.dim() == 2:
+            body_mat = transforms.aa_to_rotmat(
+                pose_body.reshape(B, n_body, 3))
+        else:
+            body_mat = pose_body.reshape(B, n_body, 3, 3)
+        mats = [root_mat, body_mat]
+        n_rest = J - 1 - n_body
+        if n_rest > 0:
+            if pose_hand is not None:
+                mats.append(transforms.aa_to_rotmat(
+                    pose_hand.reshape(B, n_rest, 3)))
+            else:
+                mats.append(torch.eye(3, dtype=betas.dtype,
+                                      device=betas.device).expand(
+                                          B, n_rest, 3, 3))
+        return lbs(model, betas, torch.cat(mats, dim=1), trans,
+                   vert_ids=vert_ids, compute_dtype=compute_dtype)

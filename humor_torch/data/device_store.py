@@ -21,6 +21,7 @@ import torch
 
 from humor_torch.data import sampler
 from humor_torch.data.dataset import FRAME_OFFSETS, AmassDataset
+from humor_torch.utils import profiling as PR
 
 # the components the training pairs are built from (train/cli.py)
 TRAIN_COLUMNS: Tuple[str, ...] = (
@@ -110,10 +111,11 @@ class DeviceWindowStore:
         world components (B, W, D), meta {betas, gender_ids}; with `rows`
         (a data-parallel rank's, parallel.mesh.local_rows) only those of
         the batch."""
-        seq_idx, start = sampler.sample_windows(self.lengths, window_frames,
-                                                seed, batch)
-        return self._gather(seq_idx, start, window_frames, noise_std,
-                            seed + 1, rows)
+        with PR.span("data.gather"):
+            seq_idx, start = sampler.sample_windows(
+                self.lengths, window_frames, seed, batch)
+            return self._gather(seq_idx, start, window_frames, noise_std,
+                                seed + 1, rows)
 
     def sample_window_chunk(self, seeds: Sequence[int], batch: int,
                             window_frames: int, noise_std: float = 0.0,
@@ -125,12 +127,13 @@ class DeviceWindowStore:
         noise the chunk draws from one generator seeded seeds[0] + 1, as
         the JAX package draws from one key: the same distribution, other
         draws."""
-        sampled = [sampler.sample_windows(self.lengths, window_frames, s,
-                                          batch) for s in seeds]
-        return self._gather(np.stack([si for si, _ in sampled]),
-                            np.stack([st for _, st in sampled]),
-                            window_frames, noise_std, int(seeds[0]) + 1,
-                            rows)
+        with PR.span("data.gather"):
+            sampled = [sampler.sample_windows(self.lengths, window_frames,
+                                              s, batch) for s in seeds]
+            return self._gather(np.stack([si for si, _ in sampled]),
+                                np.stack([st for _, st in sampled]),
+                                window_frames, noise_std, int(seeds[0]) + 1,
+                                rows)
 
 
 def maybe_stage(ds: AmassDataset, device, mode: int = -1,

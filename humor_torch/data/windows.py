@@ -15,6 +15,7 @@ import torch
 
 from humor_torch.models.canonical import FrameTransform, apply_world2local
 from humor_torch.ops import transforms
+from humor_torch.utils import profiling as PR
 
 
 def window_trans2joint(world: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -47,13 +48,14 @@ def window_to_pairs(world: Dict[str, torch.Tensor]
     """world: typed components (..., T+1, D) with matrix rotations ->
     (data_in: state t in frame t, data_out: state t+1 in frame t,
     global_out: state t+1 in frame 0), each (..., T, D)."""
-    frames = step_frames(world, window_trans2joint(world))
-    in_frames = _frames(frames, slice(None, -1))
-    cur = {k: v[..., :-1, :] for k, v in world.items()}
-    nxt = {k: v[..., 1:, :] for k, v in world.items()}
-    return (apply_world2local(in_frames, cur),
-            apply_world2local(in_frames, nxt),
-            apply_world2local(_frames(frames, slice(0, 1)), nxt))
+    with PR.span("data.pairs"):
+        frames = step_frames(world, window_trans2joint(world))
+        in_frames = _frames(frames, slice(None, -1))
+        cur = {k: v[..., :-1, :] for k, v in world.items()}
+        nxt = {k: v[..., 1:, :] for k, v in world.items()}
+        return (apply_world2local(in_frames, cur),
+                apply_world2local(in_frames, nxt),
+                apply_world2local(_frames(frames, slice(0, 1)), nxt))
 
 
 def window_to_pairs_multi(world: Dict[str, torch.Tensor], steps_in: int
@@ -63,17 +65,20 @@ def window_to_pairs_multi(world: Dict[str, torch.Tensor], steps_in: int
     F, D) -> (data_in (..., T, S, D): frames i..i+S-1 in frame i+S-1's
     heading frame, data_out (..., T, D): frame i+S in the same frame),
     T = F - S."""
-    frames = step_frames(world, window_trans2joint(world))
-    S, F = steps_in, world["trans"].shape[-2]
-    T = F - S
-    anchor = _frames(frames, slice(S - 1, F - 1))
-    win = {k: torch.stack([v[..., s: s + T, :] for s in range(S)], dim=-2)
-           for k, v in world.items()}
-    nxt = {k: v[..., S:, :] for k, v in world.items()}
-    anchor_w = FrameTransform(anchor.rot[..., :, None, :, :],
-                              anchor.trans[..., :, None, :],
-                              anchor.trans2joint[..., :, None, :])
-    return apply_world2local(anchor_w, win), apply_world2local(anchor, nxt)
+    with PR.span("data.pairs"):
+        frames = step_frames(world, window_trans2joint(world))
+        S, F = steps_in, world["trans"].shape[-2]
+        T = F - S
+        anchor = _frames(frames, slice(S - 1, F - 1))
+        win = {k: torch.stack([v[..., s: s + T, :] for s in range(S)],
+                              dim=-2)
+               for k, v in world.items()}
+        nxt = {k: v[..., S:, :] for k, v in world.items()}
+        anchor_w = FrameTransform(anchor.rot[..., :, None, :, :],
+                                  anchor.trans[..., :, None, :],
+                                  anchor.trans2joint[..., :, None, :])
+        return (apply_world2local(anchor_w, win),
+                apply_world2local(anchor, nxt))
 
 
 def window_to_global(world: Dict[str, torch.Tensor]

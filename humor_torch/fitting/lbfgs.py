@@ -44,6 +44,14 @@ inf-norms (max). So every rank takes the same branch at each host
 decision (`_select_memory`'s count, the zoom search's), as a rank that
 decided from its own shard would deadlock or diverge. Without `reduce`
 the arithmetic is the single-device one, unchanged.
+
+Spans (utils/profiling, recorded only inside `profiling.recording()`):
+"lbfgs.iter" an iteration, in three parts, "lbfgs.direction" (the best
+iterate and the two-loop direction), "lbfgs.search" and "lbfgs.update"
+(the safeguard, the memory's selection and the early exit's reads);
+"lbfgs.forward" and "lbfgs.backward" around each evaluation's `loss_fn`
+and gradient. Counters: "lbfgs.evaluations", "lbfgs.points" (candidate
+rows evaluated) and "lbfgs.zoom_probes".
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from humor_torch.parallel import mesh as P
+from humor_torch.utils import profiling as PR
 
 _C1, _C2 = 1e-4, 0.9
 
@@ -286,6 +295,7 @@ def zoom_linesearch(probe: Callable, value: torch.Tensor, grad: torch.Tensor,
     value_init, slope_init = value, slope
 
     def on_line(step):
+        PR.count("lbfgs.zoom_probes")
         v, g = probe(step)
         return v, g, dot(g, direction)
 
@@ -421,15 +431,23 @@ def run_lbfgs(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
         """xs (K, P) -> (values (K,), grads (K, P)); each rank
         differentiates its own share of the loss, whose collectives
         carry the cross-rank terms' cotangents."""
+        evaluated(xs)
         xs = xs.detach().requires_grad_(True)
         with torch.enable_grad():
-            vals = loss_fn(fl.unflat(xs))
-            g, = torch.autograd.grad(vals.sum(), xs)
+            with PR.span("lbfgs.forward"):
+                vals = loss_fn(fl.unflat(xs))
+            with PR.span("lbfgs.backward"):
+                g, = torch.autograd.grad(vals.sum(), xs)
         return total(vals.detach()), g
 
     def values(xs: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad():
+        evaluated(xs)
+        with torch.no_grad(), PR.span("lbfgs.forward"):
             return total(loss_fn(fl.unflat(xs)))
+
+    def evaluated(xs: torch.Tensor):
+        PR.count("lbfgs.evaluations")
+        PR.count("lbfgs.points", xs.shape[0])
 
     def value_and_grad1(x: torch.Tensor):
         v, g = value_and_grad(x[None])
@@ -452,81 +470,88 @@ def run_lbfgs(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
     for _ in range(num_iters):
         if early and stall >= stall_patience:
             break
-        history.append(value)
-        x_old = x
-        better = torch.isfinite(value) & (value < best_val)
-        best_x = _select(better, x, best_x)
-        best_val = _select(better, value, best_val)
+        with PR.span("lbfgs.iter"):
+            with PR.span("lbfgs.direction"):
+                history.append(value)
+                x_old = x
+                better = torch.isfinite(value) & (value < best_val)
+                best_x = _select(better, x, best_x)
+                best_val = _select(better, value, best_val)
 
-        direction, new_mem = mem.direction(grads, x, dot, norm)
-        direction = masked(direction)
-        g0d = dot(grads, direction)
+                direction, new_mem = mem.direction(grads, x, dot, norm)
+                direction = masked(direction)
+                g0d = dot(grads, direction)
 
-        if linesearch == "zoom":
-            a_sel, new_value, new_grads = zoom_linesearch(
-                lambda a: value_and_grad1(x + a * direction), value, grads,
-                direction, max_linesearch_steps, dot)
-            new_x = x + a_sel * direction
-            if not bool(torch.isfinite(new_value)):   # host sync
-                # value_and_grad_from_state: the search's value is not
-                # finite, so evaluate at the accepted point
-                new_value, new_grads = value_and_grad1(new_x)
-            new_grads = masked(new_grads)
-            keep = torch.ones((), dtype=torch.bool, device=dev)
-        else:
-            alphas = torch.cat([torch.clamp(alpha_prev * mults, 1e-8, 1e4),
-                                one])
-            alphas = torch.sort(alphas, descending=True).values
-            cand = x[None] + alphas[:, None] * direction[None]
-            if linesearch == "parallel":
-                vals, grads_k = value_and_grad(cand)
-                finite = torch.isfinite(vals)
-                armijo = vals <= value + _C1 * alphas * g0d
-                curvature = torch.abs(total(grads_k @ direction)) \
-                    <= _C2 * torch.abs(g0d)
-                accept = finite & armijo & curvature
-            else:
-                vals = values(cand)
-                finite = torch.isfinite(vals)
-                accept = finite & (vals <= value + _C1 * alphas * g0d)
-            idx_first = torch.argmax(accept.to(torch.int8))
-            idx_desc = torch.argmin(torch.where(
-                finite, vals, torch.full_like(vals, math.inf)))
-            found = accept.any()
-            idx = torch.where(found, idx_first, idx_desc)
-            a_sel = alphas[idx]
-            new_x = x + a_sel * direction
-            if linesearch == "parallel":
-                new_value, new_grads = vals[idx], masked(grads_k[idx])
-                keep = found
-            else:
-                new_value, new_grads = value_and_grad1(new_x)
-                new_grads = masked(new_grads)
-                keep = found & (torch.abs(dot(new_grads, direction))
-                                <= _C2 * torch.abs(g0d))
+            with PR.span("lbfgs.search"):
+                if linesearch == "zoom":
+                    a_sel, new_value, new_grads = zoom_linesearch(
+                        lambda a: value_and_grad1(x + a * direction), value,
+                        grads, direction, max_linesearch_steps, dot)
+                    new_x = x + a_sel * direction
+                    if not bool(torch.isfinite(new_value)):   # host sync
+                        # value_and_grad_from_state: the search's value is
+                        # not finite, so evaluate at the accepted point
+                        new_value, new_grads = value_and_grad1(new_x)
+                    new_grads = masked(new_grads)
+                    keep = torch.ones((), dtype=torch.bool, device=dev)
+                else:
+                    alphas = torch.cat(
+                        [torch.clamp(alpha_prev * mults, 1e-8, 1e4), one])
+                    alphas = torch.sort(alphas, descending=True).values
+                    cand = x[None] + alphas[:, None] * direction[None]
+                    if linesearch == "parallel":
+                        vals, grads_k = value_and_grad(cand)
+                        finite = torch.isfinite(vals)
+                        armijo = vals <= value + _C1 * alphas * g0d
+                        curvature = torch.abs(total(grads_k @ direction)) \
+                            <= _C2 * torch.abs(g0d)
+                        accept = finite & armijo & curvature
+                    else:
+                        vals = values(cand)
+                        finite = torch.isfinite(vals)
+                        accept = finite & (vals
+                                           <= value + _C1 * alphas * g0d)
+                    idx_first = torch.argmax(accept.to(torch.int8))
+                    idx_desc = torch.argmin(torch.where(
+                        finite, vals, torch.full_like(vals, math.inf)))
+                    found = accept.any()
+                    idx = torch.where(found, idx_first, idx_desc)
+                    a_sel = alphas[idx]
+                    new_x = x + a_sel * direction
+                    if linesearch == "parallel":
+                        new_value = vals[idx]
+                        new_grads = masked(grads_k[idx])
+                        keep = found
+                    else:
+                        new_value, new_grads = value_and_grad1(new_x)
+                        new_grads = masked(new_grads)
+                        keep = found & (torch.abs(dot(new_grads, direction))
+                                        <= _C2 * torch.abs(g0d))
 
-        tol = 1e-4 * torch.abs(value) + 1e-8
-        ok = (torch.isfinite(new_value) & (new_value <= value + tol)
-              & torch.isfinite(norm(direction)))
-        fresh = _LbfgsMemory(x0, history_size)
-        # monotone safeguard: reject a non-descent step and restart the
-        # memory; the parallel and armijo searches keep the step but drop
-        # its curvature pair unless it passed the curvature test (a
-        # y.s <= 0 pair would make the inverse-Hessian estimate
-        # indefinite)
-        new_x = _select(ok, new_x, x)
-        new_value = _select(ok, new_value, value)
-        new_grads = _select(ok, new_grads, grads)
-        mem = _select_memory(ok & keep, new_mem, fresh)
-        alpha_prev = _select(ok, a_sel, torch.ones_like(a_sel))
-        x, value, grads = new_x, new_value, new_grads
+            with PR.span("lbfgs.update"):
+                tol = 1e-4 * torch.abs(value) + 1e-8
+                ok = (torch.isfinite(new_value) & (new_value <= value + tol)
+                      & torch.isfinite(norm(direction)))
+                fresh = _LbfgsMemory(x0, history_size)
+                # monotone safeguard: reject a non-descent step and restart
+                # the memory; the parallel and armijo searches keep the step
+                # but drop its curvature pair unless it passed the curvature
+                # test (a y.s <= 0 pair would make the inverse-Hessian
+                # estimate indefinite)
+                new_x = _select(ok, new_x, x)
+                new_value = _select(ok, new_value, value)
+                new_grads = _select(ok, new_grads, grads)
+                mem = _select_memory(ok & keep, new_mem, fresh)
+                alpha_prev = _select(ok, a_sel, torch.ones_like(a_sel))
+                x, value, grads = new_x, new_value, new_grads
 
-        if early:
-            change = float(inf_norm(torch.max(torch.abs(x - x_old))))
-            gnorm = float(inf_norm(torch.max(torch.abs(grads))))  # syncs
-            stall = stall + 1 if change <= tol_change else 0
-            if gnorm <= tol_grad:
-                stall = stall_patience
+                if early:
+                    # two host syncs
+                    change = float(inf_norm(torch.max(torch.abs(x - x_old))))
+                    gnorm = float(inf_norm(torch.max(torch.abs(grads))))
+                    stall = stall + 1 if change <= tol_change else 0
+                    if gnorm <= tol_grad:
+                        stall = stall_patience
 
     # the unreached tail holds the final value; a NaN the loop recorded
     # stays

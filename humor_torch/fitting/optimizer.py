@@ -69,6 +69,7 @@ from humor_torch.models import vposer as vp
 from humor_torch.ops import rollout_kernel as RK
 from humor_torch.ops import transforms
 from humor_torch.parallel import mesh as P
+from humor_torch.utils import profiling as PR
 
 CONTACT_THRESH = 0.5
 
@@ -338,13 +339,14 @@ def rollout_latent_motion(models: TTOModels,
         "joints": joints0[:, 0].reshape(B, -1),
         "joints_vel": variables["joints_vel"][:, 0].reshape(B, -1),
     }
-    if weights is not None:
-        w, prior = RK.rollout(weights, init_state, latent_motion)
-    else:
-        roll = H.rollout(models.humor_cfg, models.humor, init_state, Tm1,
-                         z_seq=latent_motion, canonicalize_input=True,
-                         uncanonicalize_output=True)
-        w, prior = roll.world, roll.prior
+    with PR.span("rollout"):
+        if weights is not None:
+            w, prior = RK.rollout(weights, init_state, latent_motion)
+        else:
+            roll = H.rollout(models.humor_cfg, models.humor, init_state, Tm1,
+                             z_seq=latent_motion, canonicalize_input=True,
+                             uncanonicalize_output=True)
+            w, prior = roll.world, roll.prior
     root_mats = w["root_orient"].reshape(B, Tm1, 3, 3)
     pose_mats = w["pose_body"].reshape(B, Tm1, -1, 3, 3)
     out = {
@@ -511,7 +513,8 @@ def stage1_objective(cfg: TTOConfig, fm: FitModels, vars_,
         off = j0 + v["trans"][:, :, None]
         pred = {k: torch.einsum("btij,btnj->btni", R, p) + off
                 for k, p in pts.items()}
-        return E.root_fit(cfg.energy, w1, obs, pred, mesh)
+        with PR.span("energies"):
+            return E.root_fit(cfg.energy, w1, obs, pred, mesh)
     return loss
 
 
@@ -524,8 +527,9 @@ def stage2_objective(cfg: TTOConfig, fm: FitModels,
                             verts=verts_mode_for(obs))
         pred["latent_pose"] = v["latent_pose"]
         pred["betas"] = v["betas"]
-        return E.smpl_fit(cfg.energy, cfg.stage_weights[1], obs, pred,
-                          cfg.seq_len, mesh)
+        with PR.span("energies"):
+            return E.smpl_fit(cfg.energy, cfg.stage_weights[1], obs, pred,
+                              cfg.seq_len, mesh)
     return loss
 
 
@@ -616,13 +620,13 @@ def stage3_objective(fm: FitModels, weights3: E.StageWeights, nsteps: int,
             cam_pred["floor_plane"] = v["floor_plane"]
         else:
             cam_pred = pred
-        return E.motion_fit(energy, weights3, slice_observations(obs, nsteps),
-                            pred, cam_pred, nsteps, gmm=m.init_gmm,
-                            cond_prior=(prior_out["cond_prior"]
-                                        if m.humor_cfg.conditional_prior
-                                        else None),
-                            init_motion_scale=scale, gmm_terms=fm.gmm_terms,
-                            mesh=mesh)
+        with PR.span("energies"):
+            return E.motion_fit(
+                energy, weights3, slice_observations(obs, nsteps), pred,
+                cam_pred, nsteps, gmm=m.init_gmm,
+                cond_prior=(prior_out["cond_prior"]
+                            if m.humor_cfg.conditional_prior else None),
+                init_motion_scale=scale, gmm_terms=fm.gmm_terms, mesh=mesh)
     return loss
 
 
@@ -741,7 +745,9 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda",
             timings: Optional[Dict[str, float]] = None) -> TTOResult:
         """Fit one observation batch. With a `timings` dict, the device is
         synchronised after each stage and its wall-clock seconds recorded
-        there (stage1, stage2, stage3_setup, stage3, final)."""
+        there (stage1, stage2, stage3_setup, stage3, final). While
+        recording (utils/profiling), the same stretches are the spans
+        fit.stage1, ..., fit.final, with no synchronisation."""
         t_last = [time.perf_counter()]
 
         def mark(name):
@@ -752,42 +758,45 @@ def make_runner(cfg: TTOConfig, models: TTOModels, device="cuda",
                 timings[name] = now - t_last[0]
                 t_last[0] = now
 
-        observed = _tree_to(observed, dev)
-        if mesh is not None:
-            # this rank's windows; the batch's own observations whole
-            observed = {k: v if k in E.BATCH_OBS_KEYS
-                        else P.shard_batch(mesh, v)
-                        for k, v in observed.items()}
-        B = batch_size_of(observed)
         losses, per_stage = {}, {}
-        vars_ = init_variables(cfg, fm.models, B, observed, dev)
-        vars_, losses["stage1"] = _lbfgs(
-            stage1_objective(cfg, fm, vars_, verts_mode_for(observed),
-                             mesh),
-            vars_, cfg.num_iters[0], observed,
-            lambda k: k in ("trans", "root_orient"), 0)
-        with torch.no_grad():
-            per_stage["stage1"] = gather(export(vars_))
+        with PR.span("fit.stage1"):
+            observed = _tree_to(observed, dev)
+            if mesh is not None:
+                # this rank's windows; the batch's own observations whole
+                observed = {k: v if k in E.BATCH_OBS_KEYS
+                            else P.shard_batch(mesh, v)
+                            for k, v in observed.items()}
+            B = batch_size_of(observed)
+            vars_ = init_variables(cfg, fm.models, B, observed, dev)
+            vars_, losses["stage1"] = _lbfgs(
+                stage1_objective(cfg, fm, vars_, verts_mode_for(observed),
+                                 mesh),
+                vars_, cfg.num_iters[0], observed,
+                lambda k: k in ("trans", "root_orient"), 0)
+            with torch.no_grad():
+                per_stage["stage1"] = gather(export(vars_))
         mark("stage1")
-        vars_, losses["stage2"] = _lbfgs(
-            stage2_objective(cfg, fm, mesh), vars_, cfg.num_iters[1],
-            observed, lambda k: k != "floor_plane", 1)
-        with torch.no_grad():
-            per_stage["stage2"] = gather(export(vars_))
+        with PR.span("fit.stage2"):
+            vars_, losses["stage2"] = _lbfgs(
+                stage2_objective(cfg, fm, mesh), vars_, cfg.num_iters[1],
+                observed, lambda k: k != "floor_plane", 1)
+            with torch.no_grad():
+                per_stage["stage2"] = gather(export(vars_))
         mark("stage2")
-        with torch.no_grad():
+        with PR.span("fit.stage3_setup"), torch.no_grad():
             s3 = stage3_setup(cfg, fm, vars_)
         mark("stage3_setup")
         hist3 = []
-        for wts, nsteps, scale, n, trainable in stage3_phases(cfg):
-            s3, h = _lbfgs(stage3_objective(fm, wts, nsteps, scale,
-                                            cfg.energy, cfg.optim_floor,
-                                            mesh),
-                           s3, n, observed, trainable, 2)
-            hist3.append(h)
-        losses["stage3"] = torch.cat(hist3)
+        with PR.span("fit.stage3"):
+            for wts, nsteps, scale, n, trainable in stage3_phases(cfg):
+                s3, h = _lbfgs(stage3_objective(fm, wts, nsteps, scale,
+                                                cfg.energy, cfg.optim_floor,
+                                                mesh),
+                               s3, n, observed, trainable, 2)
+                hist3.append(h)
+            losses["stage3"] = torch.cat(hist3)
         mark("stage3")
-        with torch.no_grad():
+        with PR.span("fit.final"), torch.no_grad():
             c2p = cam2prior_of(fm, s3) if cfg.optim_floor else None
             prior_out, cam_out = rollout_latent_motion(
                 fm.models, fm.rollout_weights, s3, s3["latent_motion"],

@@ -5,7 +5,8 @@ and its confusion stats, the contact-velocity term, and the SMPL joint,
 mesh and consistency losses through the gendered body forward.
 
 The ground-truth bodies of the SMPL terms run without a graph: only the
-prediction is differentiated.
+prediction is differentiated. The SMPL terms run in the span
+"train.smpl_losses" (utils/profiling).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from humor_torch.body_model import constants as C
 from humor_torch.body_model.gendered import gendered_forward
 from humor_torch.ops import transforms
+from humor_torch.utils import profiling as PR
 
 CONTACT_THRESH = 0.5
 SMPL_LOSS_DTYPES = {"": None, "bfloat16": torch.bfloat16}
@@ -182,46 +184,48 @@ def elbo_loss(cfg: LossConfig,
         loss = loss + cfg.contacts_vel_loss * term
 
     if cfg.use_smpl_losses and smpl_models is not None:
-        if gender_ids is None or betas is None:
-            raise ValueError("SMPL losses require gender_ids and betas")
-        N = pred["trans"].shape[0]
-        nb = C.NUM_BODY_JOINTS
-        p_orient = transforms.rotmat_to_aa(pred["root_orient"].reshape(N, 3, 3))
-        p_pose = transforms.rotmat_to_aa(
-            pred["pose_body"].reshape(N, nb, 3, 3)).reshape(N, -1)
-        cd = cfg.smpl_compute_dtype
-        pred_body = gendered_forward(smpl_models, gender_ids, p_orient,
-                                     p_pose, betas, pred["trans"],
-                                     compute_dtype=cd)
-        with torch.no_grad():
-            g_orient = transforms.rotmat_to_aa(
-                gt["root_orient"].reshape(N, 3, 3))
-            g_pose = transforms.rotmat_to_aa(
-                gt["pose_body"].reshape(N, nb, 3, 3)).reshape(N, -1)
-            gt_body = gendered_forward(smpl_models, gender_ids, g_orient,
-                                       g_pose, betas, gt["trans"],
-                                       compute_dtype=cd)
-        pj = pred_body.Jtr[:, :C.NUM_SMPL_JOINTS]
-        gj = gt_body.Jtr[:, :C.NUM_SMPL_JOINTS]
-        if cfg.smpl_joint_loss > 0.0:
-            term = torch.mean(torch.square(pj - gj))
-            stats["smpl_joint_loss"] = term
-            loss = loss + cfg.smpl_joint_loss * term
-        if cfg.smpl_mesh_loss > 0.0:
-            term = torch.mean(torch.square(pred_body.v - gt_body.v))
-            stats["smpl_mesh_loss"] = term
-            loss = loss + cfg.smpl_mesh_loss * term
-        if cfg.smpl_joint_consistency_loss > 0.0 and "joints" in pred:
-            rj = pred["joints"].reshape(N, C.NUM_SMPL_JOINTS, 3)
-            term = torch.mean(torch.square(pj - rj))
-            stats["smpl_joint_consistency_loss"] = term
-            loss = loss + cfg.smpl_joint_consistency_loss * term
-        if cfg.smpl_vert_consistency_loss > 0.0 and "verts" in pred:
-            kv = pred_body.v[:, C.KEYPT_VERTS]
-            rv = pred["verts"].reshape(N, C.NUM_KEYPT_VERTS, 3)
-            term = torch.mean(torch.square(kv - rv))
-            stats["smpl_vert_consistency_loss"] = term
-            loss = loss + cfg.smpl_vert_consistency_loss * term
+        with PR.span("train.smpl_losses"):
+            if gender_ids is None or betas is None:
+                raise ValueError("SMPL losses require gender_ids and betas")
+            N = pred["trans"].shape[0]
+            nb = C.NUM_BODY_JOINTS
+            p_orient = transforms.rotmat_to_aa(
+                pred["root_orient"].reshape(N, 3, 3))
+            p_pose = transforms.rotmat_to_aa(
+                pred["pose_body"].reshape(N, nb, 3, 3)).reshape(N, -1)
+            cd = cfg.smpl_compute_dtype
+            pred_body = gendered_forward(smpl_models, gender_ids, p_orient,
+                                         p_pose, betas, pred["trans"],
+                                         compute_dtype=cd)
+            with torch.no_grad():
+                g_orient = transforms.rotmat_to_aa(
+                    gt["root_orient"].reshape(N, 3, 3))
+                g_pose = transforms.rotmat_to_aa(
+                    gt["pose_body"].reshape(N, nb, 3, 3)).reshape(N, -1)
+                gt_body = gendered_forward(smpl_models, gender_ids, g_orient,
+                                           g_pose, betas, gt["trans"],
+                                           compute_dtype=cd)
+            pj = pred_body.Jtr[:, :C.NUM_SMPL_JOINTS]
+            gj = gt_body.Jtr[:, :C.NUM_SMPL_JOINTS]
+            if cfg.smpl_joint_loss > 0.0:
+                term = torch.mean(torch.square(pj - gj))
+                stats["smpl_joint_loss"] = term
+                loss = loss + cfg.smpl_joint_loss * term
+            if cfg.smpl_mesh_loss > 0.0:
+                term = torch.mean(torch.square(pred_body.v - gt_body.v))
+                stats["smpl_mesh_loss"] = term
+                loss = loss + cfg.smpl_mesh_loss * term
+            if cfg.smpl_joint_consistency_loss > 0.0 and "joints" in pred:
+                rj = pred["joints"].reshape(N, C.NUM_SMPL_JOINTS, 3)
+                term = torch.mean(torch.square(pj - rj))
+                stats["smpl_joint_consistency_loss"] = term
+                loss = loss + cfg.smpl_joint_consistency_loss * term
+            if cfg.smpl_vert_consistency_loss > 0.0 and "verts" in pred:
+                kv = pred_body.v[:, C.KEYPT_VERTS]
+                rv = pred["verts"].reshape(N, C.NUM_KEYPT_VERTS, 3)
+                term = torch.mean(torch.square(kv - rv))
+                stats["smpl_vert_consistency_loss"] = term
+                loss = loss + cfg.smpl_vert_consistency_loss * term
 
     if kl_weighted is not None:
         stats["reconstr_weighted_loss"] = loss - kl_weighted

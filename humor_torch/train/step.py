@@ -16,6 +16,10 @@ axis (`stack_batches`), as the JAX package scans them in one program; its
 stats stay on the device, so the trainer reads a chunk's stats once.
 Under a data-parallel `Mesh` (parallel/mesh.py) each rank steps on its
 rows of the batch; see make_train_steps.
+
+Spans (utils/profiling): "train.step" a step, in "train.forward" (the
+model), "train.elbo" (the loss; its SMPL terms "train.smpl_losses"),
+"train.backward" (the gradient) and "train.optimizer".
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from humor_torch.body_model.gendered import make_rollout_joint_fn
 from humor_torch.losses.elbo import LossConfig, elbo_loss
 from humor_torch.models import humor as H
 from humor_torch.parallel import mesh as P
+from humor_torch.utils import profiling as PR
 
 MAX_CONSECUTIVE_ERRORS = 10 ** 6   # apply_if_finite's, as the JAX package
 
@@ -227,12 +232,14 @@ def supervised_loss_fn(cfg: H.HumorConfig, loss_cfg: LossConfig,
     posterior noise."""
 
     def fn(params, batch, epoch, eps=None, generator=None):
-        past, t_in, gt, gender, betas = _flatten_supervised(cfg, batch)
-        out = H.single_step(cfg, params, past, t_in, eps=eps,
-                            generator=generator)
-        return elbo_loss(loss_cfg, out.pred, out.posterior, out.prior, gt,
-                         epoch, gender_ids=gender, betas=betas,
-                         smpl_models=smpl_models)
+        with PR.span("train.forward"):
+            past, t_in, gt, gender, betas = _flatten_supervised(cfg, batch)
+            out = H.single_step(cfg, params, past, t_in, eps=eps,
+                                generator=generator)
+        with PR.span("train.elbo"):
+            return elbo_loss(loss_cfg, out.pred, out.posterior, out.prior,
+                             gt, epoch, gender_ids=gender, betas=betas,
+                             smpl_models=smpl_models)
 
     return fn
 
@@ -252,26 +259,28 @@ def sched_samp_loss_fn(cfg: H.HumorConfig, loss_cfg: LossConfig,
            generator=None):
         data_in, data_out = batch["data_in"], batch["data_out"]
         B, T = data_in["trans"].shape[:2]
-        joint_fn = (make_rollout_joint_fn(smpl_models, batch["gender_ids"],
-                                          batch["betas"])
-                    if use_smpl_joint_inputs else None)
-        x_past = (H.state_to_input(cfg, data_in) if cfg.steps_in == 1
-                  else H.state_to_input_window(cfg, data_in))
-        out = H.scheduled_sampling(
-            cfg, params, x_past,
-            H.state_to_input(cfg, data_out),
-            {k: v[:, 0] for k, v in data_in.items()}, use_gt_p,
-            smpl_joint_fn=joint_fn, use_gt=use_gt, eps=eps,
-            generator=generator)
+        with PR.span("train.forward"):
+            joint_fn = (make_rollout_joint_fn(
+                smpl_models, batch["gender_ids"], batch["betas"])
+                if use_smpl_joint_inputs else None)
+            x_past = (H.state_to_input(cfg, data_in) if cfg.steps_in == 1
+                      else H.state_to_input_window(cfg, data_in))
+            out = H.scheduled_sampling(
+                cfg, params, x_past,
+                H.state_to_input(cfg, data_out),
+                {k: v[:, 0] for k, v in data_in.items()}, use_gt_p,
+                smpl_joint_fn=joint_fn, use_gt=use_gt, eps=eps,
+                generator=generator)
         flat = lambda v: v.reshape(B * T, -1)
-        return elbo_loss(
-            loss_cfg, {k: flat(v) for k, v in out.pred.items()},
-            tuple(flat(v) for v in out.posterior),
-            tuple(flat(v) for v in out.prior),
-            {k: flat(v) for k, v in data_out.items()}, epoch,
-            gender_ids=batch["gender_ids"].repeat_interleave(T),
-            betas=batch["betas"].repeat_interleave(T, dim=0),
-            smpl_models=smpl_models)
+        with PR.span("train.elbo"):
+            return elbo_loss(
+                loss_cfg, {k: flat(v) for k, v in out.pred.items()},
+                tuple(flat(v) for v in out.posterior),
+                tuple(flat(v) for v in out.prior),
+                {k: flat(v) for k, v in data_out.items()}, epoch,
+                gender_ids=batch["gender_ids"].repeat_interleave(T),
+                betas=batch["betas"].repeat_interleave(T, dim=0),
+                smpl_models=smpl_models)
 
     return fn
 
@@ -357,30 +366,36 @@ def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
 
     def _update(state: TrainState, loss, stats):
         leaves = tree_leaves(state.params)
-        grads = torch.autograd.grad(loss, leaves)
-        stats = {k: v.detach() for k, v in stats.items()}
-        stats["total_loss"] = loss.detach()
-        if mesh is not None:
-            grads = P.all_reduce_grad_mean(mesh, list(grads))
-            stats = _mean_over_ranks(stats)
-        stats["grad_norm"] = global_norm(grads)
-        opt_state = opt.update(list(grads), state.opt_state, state.params)
+        with PR.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        with PR.span("train.optimizer"):
+            stats = {k: v.detach() for k, v in stats.items()}
+            stats["total_loss"] = loss.detach()
+            if mesh is not None:
+                grads = P.all_reduce_grad_mean(mesh, list(grads))
+                stats = _mean_over_ranks(stats)
+            stats["grad_norm"] = global_norm(grads)
+            opt_state = opt.update(list(grads), state.opt_state,
+                                   state.params)
         return TrainState(state.params, opt_state, state.step + 1), stats
 
     def supervised_step(state: TrainState, batch, epoch, eps=None,
                         generator=None):
-        eps = _sup_eps(state.params, batch, eps, generator)
-        loss, stats = sup_loss(state.params, batch, epoch, eps=eps,
-                               generator=generator)
-        return _update(state, loss, stats)
+        with PR.span("train.step"):
+            eps = _sup_eps(state.params, batch, eps, generator)
+            loss, stats = sup_loss(state.params, batch, epoch, eps=eps,
+                                   generator=generator)
+            return _update(state, loss, stats)
 
     def sched_samp_step(state: TrainState, batch, epoch, use_gt_p,
                         use_gt=None, eps=None, generator=None):
-        use_gt, eps = _ss_draws(state.params, batch, use_gt_p, use_gt, eps,
-                                generator)
-        loss, stats = ss_loss(state.params, batch, epoch, use_gt_p,
-                              use_gt=use_gt, eps=eps, generator=generator)
-        return _update(state, loss, stats)
+        with PR.span("train.step"):
+            use_gt, eps = _ss_draws(state.params, batch, use_gt_p, use_gt,
+                                    eps, generator)
+            loss, stats = ss_loss(state.params, batch, epoch, use_gt_p,
+                                  use_gt=use_gt, eps=eps,
+                                  generator=generator)
+            return _update(state, loss, stats)
 
     @torch.no_grad()
     def eval_step(params, batch, epoch, eps=None, generator=None):
