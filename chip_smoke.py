@@ -27,7 +27,14 @@ Phases, each of which fails the run (non-zero exit) on error:
      the 4096-point cloud), on duplicated points (first index), at prime
      sizes and at the edges of its chunks, tiles and blocks
      (nn_edge_sizes()); timed at the fit's full (960, 4096, 6890), with its
-     plain version, and at stage 3's (240, 4096, 6890);
+     plain version, and at stage 3's (240, 4096, 6890). The skinning
+     kernels (forward and backward) at a training step's 2,000 rows x
+     6,890 vertices x 22 joints and at the edges of their blocks
+     (skin_edge_sizes()), within SKIN_RTOL max-scaled, bit-equal to the
+     plain version at the training shape with the weights in either
+     layout, twice on the same inputs (bit-identical), and timed at the
+     training shape with their plain versions and one torch.matmul of
+     the blend alone;
   3. run the joints3d 3-stage test-time fit (B=2 windows x 60 frames,
      L-BFGS iterations 30/70/70, the bench_tto joints3d weights) on
      seeded random weights and a seeded synthetic body with 6890
@@ -92,8 +99,12 @@ Phases, each of which fails the run (non-zero exit) on error:
      checkpoints written; configs/train_humor_qual.cfg for 2 epochs of 2
      steps (its SMPL-joint feedback in the second); then the fit CLI with its final_model.npz on
      phase 7's RGB layout, which must launch both rollout kernels and
-     give finite losses and outputs. Training itself launches none of
-     the three kernels (JAX trains through plain XLA too);
+     give finite losses and outputs. Training launches neither the
+     rollout nor the nearest-neighbour kernel (JAX trains through plain
+     XLA too); a supervised and a scheduled-sampling chunk of 8 steps at
+     200 x 10 each launch 4 skinning forwards and 2 backwards a step and
+     no gemvx/gemv2N launch of SKIN_LIBRARY_MS (the per-vertex GEMVs are
+     gone, the kinematic chain's 3 x 3 ones stay; check_skin_chunk);
   9. the dataset-level entry points on a temporary directory (two
      processed synthetic sequences, 159 frames each, the 6890-vertex
      bodies as SMPL+H npz files): the AMASS fit observations (noisy
@@ -115,7 +126,8 @@ Phases, each of which fails the run (non-zero exit) on error:
      raw tree of four sequences on the card and on the CPU (within
      PROCESS_TOL), then the cleanup CLI, which must move the treadmill
      sequence alone. The GMM, evaluation and preprocessing paths launch
-     no kernel;
+     no fit kernel (fit_kernel_launches; float32 bodies skin through the
+     skinning kernels);
  10. the trained fixture (humor_torch.testing, the JAX package's
      humor_tpu/testing.py): mini HuMoR trained on the card for 300
      supervised and 150 scheduled-sampling steps at 48 x 10 with the SMPL
@@ -143,7 +155,7 @@ Phases, each of which fails the run (non-zero exit) on error:
      (histories within CONFIG_FIT_RTOL, the final pose within
      CONFIG_FIT_ATOL, the same weights read as deltas farther from the
      CPU than that, a 1e-6 m nudge's gap printed). These roll out
-     through the typed rollout and launch no kernel, by design;
+     through the typed rollout and launch no fit kernel, by design;
  12. the k-step dispatch and the multi-device layer: multi_sup and
      multi_ss over a chunk of PAR_K batches against PAR_K single steps
      with the same draws (phase 8's size; params, moments and stats
@@ -178,7 +190,7 @@ Phases, each of which fails the run (non-zero exit) on error:
      modes in turns, and scheduled sampling with both, ms a step and
      peak memory; the train CLI and the AMASS joints fit CLI
      (B=2 x 60, 30/70/70) with --model-compute-dtype bfloat16: the
-     checks of phase 3 and no kernel launched (a bf16 model rolls out
+     checks of phase 3 and no fit kernel launched (a bf16 model rolls out
      through the typed rollout); then the PROX fit at 5/10/10 twice, bit
      for bit, once more under torch's deterministic mode (the ops it
      names printed), twice with the atomic index_add_ the backward's
@@ -716,6 +728,160 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# the skinning kernels (humor_torch/csrc/skinning.cu): a training step's
+# bodies are 200 x 10 rows of the 6,890-vertex, 22-joint mesh
+SKIN_SHAPE = (2000, V_VERTS, 22)   # TRAIN_B x TRAIN_T rows
+SKIN_RTOL = 1e-5               # max-scaled: the same f32 sums in another order
+SKIN_TIMED = 20
+SKIN_CHUNK_K = 8               # the trainer's k steps a chunk
+SKIN_BODIES = {"skin_fwd": 4, "skin_bwd": 2}   # a step: 2 genders x (pred, gt)
+# the einsums' batched GEMVs over (rows, vertices), ~12 ms a call at the
+# training shape on an H100 (0.39 s of gemvx over 32 calls a chunk); the
+# kinematic chain's own 3 x 3 GEMVs over the rows stay, a few microseconds each
+SKIN_LIBRARY_KERNELS = ("gemvx", "gemv2N")
+SKIN_LIBRARY_MS = 1.0          # no launch of theirs this long may remain
+
+
+def skin_edge_sizes():
+    """(rows, vertices, joints) at the edges of the kernels' design: one of
+    each, no vertex, a block's vertices - 1, + 0, + 1 and two blocks + 1,
+    its rows - 1 and + 1, rows whose vertices run past one launch of the
+    plain path's batched GEMV, the fit's 960 rows of 43 keypoint vertices,
+    SMPL+H's 52 joints and the largest count the kernels take."""
+    from humor_torch.ops import skinning as SK
+
+    d = SK.design()
+    nv, rows = d["FB"] * d["FQ"], d["ROWS"]
+    return ((1, 1, 1), (3, 0, 22), (5, 43, 22), (rows - 1, nv - 1, 22),
+            (rows + 1, nv, 22), (2 * rows + 3, nv + 1, 22),
+            (3, 2 * nv + 1, 52), (d["GEMV_BATCH"] // 300 + 1, 300, 22),
+            (960, 43, 22), (4, 300, d["MAX_JOINTS"]))
+
+
+def skin_inputs(shape, seed, device="cuda", column_major=False):
+    """Seeded weights (rows summing to 1; stored column-major, as the
+    synthetic bodies' are, when asked), world rotations, translations,
+    posed vertices around 1 m, trans and a cotangent of the vertices."""
+    import numpy as np
+    import torch
+
+    from humor_torch.ops import transforms as TT
+
+    n, v, j = shape
+    rng = np.random.RandomState(seed)
+    w = rng.rand(v, j)
+    w /= np.maximum(w.sum(1, keepdims=True), 1e-12)
+    f = lambda a: torch.tensor(a, dtype=torch.float32)
+    out = [t.to(device).contiguous() for t in (
+        f(w), TT.aa_to_rotmat(f(rng.randn(n, j, 3))), f(0.3 * rng.randn(n, j, 3)),
+        f(rng.randn(n, v, 3)), f(rng.randn(n, 3)), f(rng.randn(n, v, 3)))]
+    if column_major:
+        out[0] = out[0].t().contiguous().t()
+    return out
+
+
+def skin_grads(fn, w, Rw, t_rel, vp, trans, g):
+    """fn's vertices and the gradients of Rw, t_rel, v_posed and trans."""
+    import torch
+
+    leaves = [t.clone().requires_grad_() for t in (Rw, t_rel, vp, trans)]
+    out = fn(w, *leaves)
+    grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+    return [out.detach()] + [torch.zeros_like(t) if d is None else d
+                             for t, d in zip(leaves, grads)]
+
+
+def compare_skin(shape, seed, column_major=False):
+    """The kernels (autograd Function Skin) against the plain version at
+    one shape: the vertices and the gradients of Rw, t_rel, v_posed and
+    trans (autograd of the plain einsums), max-scaled errors and whether
+    each is bit-equal; fails above SKIN_RTOL."""
+    import torch
+
+    from humor_torch.ops import skinning as SK
+
+    args = skin_inputs(shape, seed, column_major=column_major)
+    names = ("v", "Rw", "t_rel", "v_posed", "trans")
+    kern = skin_grads(SK.Skin.apply, *args)
+    plain = skin_grads(SK.skin_plain, *args)
+    torch.cuda.synchronize()
+    errs = {n: _max_scaled(a, b) for n, a, b in zip(names, kern, plain)}
+    errs["bit_equal"] = all(torch.equal(a, b) for a, b in zip(kern, plain))
+    if not max(v for n, v in errs.items() if n != "bit_equal") <= SKIN_RTOL:
+        fail(f"skinning kernels at {shape} part from the plain version: "
+             f"{errs}")
+    return errs
+
+
+def skin_bound(shape):
+    """(forward, backward) bounds: FLOP with an FMA as 2, the forward
+    24 J + 21 a (row, vertex) (blend 12 J FMA; R x 3 x (mul + 2 FMA),
+    + t, + trans), the backward 42 J + 27 (the rotation's 9 J FMA again,
+    R^T g, the 9 products g x v_posed, 12 J FMA of the reduction, 3 adds
+    of grad_trans); the (B, V, 3) streams, weights and transforms read
+    once and the outputs written once."""
+    n, v, j = shape
+    small = 4.0 * (v * j + n * j * 12 + n * 3)
+    return (bound((24 * j + 21) * n * v, 4.0 * 6 * n * v + small),
+            bound((42 * j + 27) * n * v, 4.0 * 9 * n * v + small))
+
+
+def check_skin():
+    """Phase 2's skinning part: the kernels against the plain version at
+    the edge sizes and at the training shape, where they must be bit-equal
+    with the weights in either layout (the training cells' output check
+    relies on it), repeats bit-identical, then the [timing skin] record at
+    the training shape: the forward
+    kernel, the backward kernel, the whole backward (the kernel and the
+    plain version's sums), the plain versions, and one library call
+    (torch.matmul of the blend alone). Returns (largest error, the
+    record)."""
+    import torch
+
+    from humor_torch.ops import skinning as SK
+
+    errs = {"x".join(map(str, s)): compare_skin(s, seed=50 + k)
+            for k, s in enumerate((*skin_edge_sizes(), SKIN_SHAPE))}
+    errs["column-major weights"] = compare_skin(SKIN_SHAPE, seed=49,
+                                                column_major=True)
+    exact = (errs["x".join(map(str, SKIN_SHAPE))]["bit_equal"]
+             and errs["column-major weights"]["bit_equal"])
+    w, Rw, t_rel, vp, trans, g = skin_inputs(SKIN_SHAPE, seed=1)
+    fwd = lambda: SK.skin_forward(w, Rw, t_rel, vp, trans)
+    bwd = lambda: SK.skin_backward(w, Rw, vp, g)
+    same = torch.equal(fwd(), fwd()) and all(
+        torch.equal(a, b) for a, b in zip(bwd(), bwd()))
+    leaves = [t.clone().requires_grad_() for t in (Rw, t_rel, vp, trans)]
+    out_k = SK.Skin.apply(w, *leaves)
+    out_p = SK.skin_plain(w, *leaves)
+    n, v, j = SKIN_SHAPE
+    blend = torch.cat([Rw.reshape(n, j, 9), t_rel], -1).permute(1, 0, 2) \
+        .reshape(j, n * 12)
+    (b_fwd, by_fwd), (b_bwd, by_bwd) = skin_bound(SKIN_SHAPE)
+    grad = lambda o: torch.autograd.grad(o, leaves, g, retain_graph=True)
+    rec = {"shape": SKIN_SHAPE, "design": SK.design(),
+           "fwd_ms": cuda_ms(fwd, SKIN_TIMED),
+           "bwd_kernel_ms": cuda_ms(bwd, SKIN_TIMED),
+           "bwd_ms": cuda_ms(lambda: grad(out_k), SKIN_TIMED),
+           "fwd_bound_ms": b_fwd, "fwd_bound_by": by_fwd,
+           "bwd_bound_ms": b_bwd, "bwd_bound_by": by_bwd,
+           "plain_fwd_ms": cuda_ms(lambda: SK.skin_plain(
+               w, Rw, t_rel, vp, trans), 3),
+           "plain_bwd_ms": cuda_ms(lambda: grad(out_p), 3),
+           "library_ms": cuda_ms(lambda: torch.matmul(w, blend), 5),
+           "bit_identical": same, "bit_equal_plain": exact}
+    del out_k, out_p, leaves
+    print("[timing skin] " + json.dumps(rec))
+    print("[skin errors] " + json.dumps(errs))
+    if not same:
+        fail("skinning kernels: two calls on the same inputs differ")
+    if not exact:
+        fail(f"skinning kernels at {SKIN_SHAPE} are not bit-equal to the "
+             f"plain version: {errs}")
+    return max(e for d in errs.values() for n, e in d.items()
+               if n != "bit_equal"), rec
+
+
 def make_models():
     import torch
 
@@ -899,8 +1065,9 @@ def check_prox_objectives(models, frames=8, points=256):
 def reset_launches():
     from humor_torch.ops import chamfer as CH
     from humor_torch.ops import rollout_kernel as RK
+    from humor_torch.ops import skinning as SK
 
-    for counts in (RK.launches, CH.launches):
+    for counts in (RK.launches, CH.launches, SK.launches):
         for k in counts:
             counts[k] = 0
 
@@ -908,8 +1075,17 @@ def reset_launches():
 def read_launches():
     from humor_torch.ops import chamfer as CH
     from humor_torch.ops import rollout_kernel as RK
+    from humor_torch.ops import skinning as SK
 
-    return {**RK.launches, **CH.launches}
+    return {**RK.launches, **CH.launches, **SK.launches}
+
+
+def fit_kernel_launches(launches):
+    """The rollout and nearest-neighbour kernels' share of a path's
+    launches: the paths that run no fit kernel by design (the GMM,
+    evaluation, preprocessing, other configurations, bf16) still skin
+    their float32 bodies with the skinning kernels."""
+    return {k: n for k, n in launches.items() if not k.startswith("skin_")}
 
 
 def check_result(res, num_iters, shapes):
@@ -1779,6 +1955,73 @@ def time_train_steps(device="cuda", batch=TRAIN_B, reps=TRAIN_TIMED):
     return rec
 
 
+def check_skin_chunk(device="cuda", batch=TRAIN_B, k=SKIN_CHUNK_K):
+    """One supervised and one scheduled-sampling chunk of k steps at the
+    config's 200 x 10, profiled: each must launch SKIN_BODIES kernels of
+    each kind a step (by the counters and by the device trace) and no
+    launch of SKIN_LIBRARY_KERNELS may take SKIN_LIBRARY_MS (the per-vertex
+    GEMVs are gone; the chain's stay). Prints the chunk's busiest device
+    kernels. Returns the launches."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from humor_torch.losses.elbo import LossConfig
+    from humor_torch.models import humor as H
+    from humor_torch.ops import skinning as SK
+    from humor_torch.train import step as TS
+    from humor_torch.utils.stats import to_host
+
+    bodies = {n: b.to(device) for n, b in train_bodies().items()}
+    cfg, opt = H.HumorConfig(), TS.make_optimizer()
+    sup, ss, _ = TS.make_train_steps(cfg, LossConfig(), opt, bodies)
+    multi_sup, multi_ss = TS.make_multi_steps(sup, ss, k)
+    stacked = TS.stack_batches([train_batch(bodies, batch, seed=30 + i,
+                                            device=device) for i in range(k)])
+    state = TS.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                                device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    rec = {}
+    for name, run in (("supervised", lambda st: multi_sup(
+            st, stacked, 10, generator=gen)), ("sched_samp", lambda st:
+            multi_ss(st, stacked, 10, 0.5, generator=gen))):
+        state, _ = run(state)                  # warm-up
+        torch.cuda.synchronize()
+        before = dict(SK.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, stats = run(state)
+            to_host(stats)
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name = collections.defaultdict(float)
+        for n, ms in events:
+            by_name[n[:60]] += ms
+        rec[name] = {
+            "launches": {kk: SK.launches[kk] - before[kk] for kk in before},
+            "device": {kk: sum(kk + "_kernel" in n for n, _ in events)
+                       for kk in SKIN_BODIES},
+            "library": {kk: {"count": sum(kk in n for n, _ in events),
+                             "longest_ms": max([ms for n, ms in events
+                                                if kk in n], default=0.0)}
+                        for kk in SKIN_LIBRARY_KERNELS},
+            "device_s": sum(ms for _, ms in events) / 1e3,
+            "top_s": sorted(((n, ms / 1e3) for n, ms in by_name.items()),
+                            key=lambda t: -t[1])[:6]}
+    print("[skin chunk k=%d] " % k + json.dumps(rec))
+    for name, r in rec.items():
+        want = {kk: n * k for kk, n in SKIN_BODIES.items()}
+        if (r["launches"] != want or r["device"] != want
+                or any(lib["longest_ms"] >= SKIN_LIBRARY_MS
+                       for lib in r["library"].values())):
+            fail(f"a {name} chunk of {k} steps should launch {want} skinning "
+                 f"kernels and no {SKIN_LIBRARY_KERNELS} of "
+                 f"{SKIN_LIBRARY_MS} ms: {r}")
+    return rec
+
+
 def run_training(models, device="cuda", batch=TRAIN_B, steps=TRAIN_STEPS,
                  iters=CLI_ITERS):
     """Phase 8b-c: the train CLI (configs/train_humor.cfg at `batch`)
@@ -1962,6 +2205,8 @@ def _max_scaled(a, b):
     import torch
 
     a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    if b.numel() == 0:
+        return 0.0
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
@@ -2322,7 +2567,8 @@ def run_preprocessing(smplh, tmp, device="cuda"):
 
 def run_dataset_clis(models, device="cuda"):
     """Phase 9 on a temporary directory; returns each path's launches
-    (the evaluation, GMM and preprocessing paths must launch none)."""
+    (the evaluation, GMM and preprocessing paths must launch no fit
+    kernel)."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -2342,8 +2588,8 @@ def run_dataset_clis(models, device="cuda"):
         launches["eval_cli"] = run_eval_cli(data, smplh, tmp, device)
         launches["preprocess_cli"] = run_preprocessing(smplh, tmp, device)
     for path in ("gmm_cli", "eval_cli", "preprocess_cli"):
-        if any(launches[path].values()):
-            fail(f"the {path} path launched a kernel: {launches[path]}")
+        if any(fit_kernel_launches(launches[path]).values()):
+            fail(f"the {path} path launched a fit kernel: {launches[path]}")
     print("[phase 9] " + json.dumps(
         {"seconds": time.perf_counter() - t0}))
     return launches
@@ -2458,7 +2704,7 @@ def run_accuracy(device="cuda"):
 # --model-steps-in 2, and a short fit of an unconditional-prior,
 # absolute-output model card against CPU. The rollout kernels' layout is
 # the default configuration's (as JAX's Pallas kernel's), so these paths
-# launch none of the three kernels by design.
+# launch none of the fit kernels by design.
 CONFIG_TRAIN = {"steps_in2": dict(steps_in=2),
                 "in6d_out9d": dict(in_rot_rep="6d", out_rot_rep="9d")}
 CONFIG_FIT = dict(conditional_prior=False, output_delta=False)
@@ -2626,8 +2872,8 @@ def run_config_fit(models, device="cuda", iters=CONFIG_FIT_ITERS):
         fail(f"the non-default fit's final pose parts card from CPU: {rec}")
     if not rec["pose_gap_control"] > CONFIG_FIT_ATOL:
         fail(f"a wrong configuration's fit passes CONFIG_FIT_ATOL: {rec}")
-    if any(launches.values()):
-        fail(f"the non-default fit launched a kernel: {launches}")
+    if any(fit_kernel_launches(launches).values()):
+        fail(f"the non-default fit launched a fit kernel: {launches}")
     return launches
 
 
@@ -2637,8 +2883,8 @@ def run_configs(models, device="cuda"):
     compare_config_steps(device)
     launches = {"configs_train_cli": run_steps_in_cli(device),
                 "configs_fit": run_config_fit(models, device)}
-    if any(launches["configs_train_cli"].values()):
-        fail("the train CLI at --model-steps-in 2 launched a kernel")
+    if any(fit_kernel_launches(launches["configs_train_cli"]).values()):
+        fail("the train CLI at --model-steps-in 2 launched a fit kernel")
     print("[phase 11] " + json.dumps({"seconds": time.perf_counter() - t0}))
     return launches
 
@@ -3476,8 +3722,8 @@ def run_bf16_clis(models, device="cuda", batch=TRAIN_B, steps=4,
              "--model-compute-dtype", "bfloat16",
              "--out", os.path.join(tmp, "fit")], iters, device, shapes)
     for path, n in launches.items():
-        if any(n.values()):
-            fail(f"the {path} path launched a kernel: {n}")
+        if any(fit_kernel_launches(n).values()):
+            fail(f"the {path} path launched a fit kernel: {n}")
     return launches
 
 
@@ -3634,6 +3880,7 @@ def phase_runners(models):
     def training():
         compare_train_steps()
         time_train_steps()
+        check_skin_chunk()
         return run_training(models)
 
     return {
@@ -3692,8 +3939,8 @@ def main(argv=None):
 
     # 1. build
     t0 = time.perf_counter()
-    built = cuda_build.build(["rollout_fwd", "rollout_bwd", "nn_distance"],
-                             force=True)
+    built = cuda_build.build(["rollout_fwd", "rollout_bwd", "nn_distance",
+                              "skinning"], force=True)
     print("[build] " + json.dumps({"seconds": time.perf_counter() - t0,
                                    "per_library": built}))
     seconds = {"1": time.perf_counter() - t0}
@@ -3741,6 +3988,7 @@ def main(argv=None):
                                         "T": T_ROLL, "ms": bwd_ms_128}))
     del damped_weights
     nn_err, nn_rec = check_nn()
+    skin_err, skin_rec = check_skin()
     seconds["2"] = time.perf_counter() - t2
 
     # 3.-13. the fits, the CLIs, training, the dataset CLIs, the trained
@@ -3786,6 +4034,17 @@ def main(argv=None):
          "launches": launches["nn_distance"], "max_abs_err": nn_err,
          "ms": nn_rec["ms"], "plain_ms": nn_rec["plain_ms"], "bound_ms": b_nn,
          "bound_by": by_nn, "library_ms": None},
+        *({"name": f"skin_{d}", "route": "cuda",
+           "source": "humor_torch/csrc/skinning.cu", "replaces": None,
+           "launches": launches[f"skin_{d}"], "max_scaled_err": skin_err,
+           "ms": skin_rec[f"{d}_ms"], "plain_ms": skin_rec[f"plain_{d}_ms"],
+           "bound_ms": skin_rec[f"{d}_bound_ms"],
+           "bound_by": skin_rec[f"{d}_bound_by"],
+           "library_ms": skin_rec["library_ms"] if d == "fwd" else None,
+           "kernel_ms": skin_rec["bwd_kernel_ms"] if d == "bwd" else None,
+           "bit_identical": skin_rec["bit_identical"],
+           "bit_equal_plain": skin_rec["bit_equal_plain"]}
+          for d in ("fwd", "bwd")),
     ]
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}

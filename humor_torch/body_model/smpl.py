@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from humor_torch.body_model import constants as C
-from humor_torch.ops import transforms
+from humor_torch.ops import skinning, transforms
 from humor_torch.utils import profiling as PR
 
 
@@ -172,6 +172,9 @@ def lbs(model: SmplModel, betas: torch.Tensor, rot_mats: torch.Tensor,
     from the full shaped template; the vertex joints (vtx_joint_ids) are
     appended to the selection so Jtr keeps its layout.
 
+    The per-vertex blend and apply is ops/skinning.skin: the CUDA kernels
+    for float32 on the card, the plain einsums otherwise.
+
     compute_dtype (torch.bfloat16): the per-vertex pipeline (pose
     blendshapes and skinning) runs in that type with bf16 products and
     sums, at the JAX package's cast points, and the vertices come back in
@@ -209,10 +212,7 @@ def lbs(model: SmplModel, betas: torch.Tensor, rot_mats: torch.Tensor,
         weights_s, Rw, t_rel = weights_s.to(cd), Rw.to(cd), t_rel.to(cd)
     v_posed = v_shaped_s + torch.matmul(pose_feat, posedirs_s).reshape(
         B, -1, 3)
-    R_v = torch.einsum("vj,bjik->bvik", weights_s, Rw)
-    t_v = torch.einsum("vj,bji->bvi", weights_s, t_rel)
-    v_out = torch.einsum("bvik,bvk->bvi", R_v, v_posed) + t_v
-    v_out = v_out.to(betas.dtype) + trans[:, None, :]
+    v_out = skinning.skin(weights_s, Rw, t_rel, v_posed, trans)
     joints_out = posed_joints + trans[:, None, :]
     if n_extra > 0:
         if extra_start is not None:

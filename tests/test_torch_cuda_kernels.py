@@ -2,9 +2,10 @@
 rollout (humor_torch/ops/rollout_kernel.py) at full width, M=3 rows, T=6
 steps, both kernels also at the edge sizes of chip_smoke.py (rows off and
 on their tiles, 1, 2 and 6 steps), twice on the same inputs
-(bit-identical) and as one device kernel a call; and the nearest neighbour
+(bit-identical) and as one device kernel a call; the nearest neighbour
 (humor_torch/ops/chamfer.py) at sizes off and on the edges of its chunks,
-tiles and blocks.
+tiles and blocks; and the skinning kernels (humor_torch/ops/skinning.py)
+at the edges of their tiles and blocks and at a training step's shape.
 The kernels have no CPU mode, so these tests skip without a GPU; this
 file imports no JAX, so it also runs on a machine that has none (skip
 tests/conftest.py there, which sets up JAX):
@@ -20,6 +21,7 @@ import chip_smoke
 from humor_torch.models import humor as H
 from humor_torch.ops import chamfer as CH
 from humor_torch.ops import rollout_kernel as RK
+from humor_torch.ops import skinning as SK
 from humor_torch.ops import transforms as TT
 
 M, T = 3, 6
@@ -267,3 +269,123 @@ def test_nn_wrapper_checks_inputs():
     x = torch.zeros(1, 4, 3, dtype=torch.float64)
     with pytest.raises(ValueError):
         CH.nn_forward(x, torch.zeros(1, 5, 3))
+
+
+# (rows, vertices, joints): the edges of the skinning kernels' tiles and
+# blocks that chip_smoke.py also checks, and a training step's bodies
+SKIN_SIZES = [*chip_smoke.skin_edge_sizes(), chip_smoke.SKIN_SHAPE]
+
+
+def _skin_inputs(size, seed, column_major=False):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return chip_smoke.skin_inputs(size, seed, column_major=column_major)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["row-major", "column-major"])
+@pytest.mark.parametrize("size", SKIN_SIZES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_skin_kernels_match_plain(size, layout):
+    """The skinning Function (both kernels, and the plain version's sums
+    over the vertices) against the plain einsums and their autograd, with
+    the weights in either layout: the vertices and the gradients of Rw,
+    t_rel, v_posed and trans within relative 1e-5 of each output's largest
+    value, and bit for bit at a training step's shape, where the kernels
+    round as the plain path's GEMM and batched GEMVs do."""
+    args = _skin_inputs(size, seed=sum(size),
+                        column_major=layout == "column-major")
+    n0 = dict(SK.launches)
+    kern = chip_smoke.skin_grads(SK.Skin.apply, *args)
+    launched = size[0] * size[1] > 0
+    assert SK.launches == {k: n + launched for k, n in n0.items()}
+    plain = chip_smoke.skin_grads(SK.skin_plain, *args)
+    for name, a, b in zip(("v", "Rw", "t_rel", "v_posed", "trans"), kern,
+                          plain):
+        assert a.shape == b.shape, name
+        if b.numel():
+            assert float((a - b).abs().max()) <= 1e-5 * float(
+                b.abs().max()), name
+        if size == chip_smoke.SKIN_SHAPE:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_skin_kernels_are_deterministic():
+    """Two calls on the same inputs give bit-identical vertices and
+    gradients: the sums over vertices run in a fixed order, with no
+    float atomics."""
+    w, Rw, t_rel, vp, trans, g = _skin_inputs((40, 6890, 22), seed=3)
+    assert torch.equal(SK.skin_forward(w, Rw, t_rel, vp, trans),
+                       SK.skin_forward(w, Rw, t_rel, vp, trans))
+    for a, b in zip(SK.skin_backward(w, Rw, vp, g),
+                    SK.skin_backward(w, Rw, vp, g)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(9, 300, 22), (3, 0, 22)],
+                         ids=["vertices", "no-vertex"])
+def test_skin_kernels_are_one_launch(size):
+    """A forward and a backward kernel call each enqueue one device kernel,
+    of their own name; a call with no vertex launches none."""
+    w, Rw, t_rel, vp, trans, g = _skin_inputs(size, seed=4)
+    fwd = _device_kernels(lambda: SK.skin_forward(w, Rw, t_rel, vp, trans))
+    bwd = _device_kernels(lambda: SK.skin_backward(w, Rw, vp, g))
+    if size[1]:
+        assert len(fwd) == 1 and "skin_fwd_kernel" in fwd[0], fwd
+        assert len(bwd) == 1 and "skin_bwd_kernel" in bwd[0], bwd
+    else:
+        assert fwd == [] and bwd == [], (fwd, bwd)
+
+
+@pytest.mark.cuda
+def test_lbs_uses_skin_kernels():
+    """smpl.lbs in float32 on the card skins through the kernels, forward
+    and backward, and counts `smpl.skin_kernel` once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from humor_torch.body_model import smpl as SM
+    from humor_torch.utils import profiling as PR
+
+    body = SM.synthetic_smpl_model(seed=5, num_verts=6890, device="cuda")
+    rng = np.random.RandomState(6)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    mats = TT.aa_to_rotmat(f(0.4 * rng.randn(16, 22, 3))).requires_grad_()
+    n0 = dict(SK.launches)
+    with PR.recording() as rec:
+        out = SM.lbs(body, f(rng.randn(16, 16)), mats, f(rng.randn(16, 3)))
+    (out.v ** 2).sum().backward()
+    assert SK.launches == {"skin_fwd": n0["skin_fwd"] + 1,
+                           "skin_bwd": n0["skin_bwd"] + 1}
+    assert rec.counters["smpl.skin_kernel"] == 1
+    assert bool(torch.isfinite(mats.grad).all())
+
+
+def _skin_case(case):
+    """CPU inputs for the wrapper's checks, all right but for `case`."""
+    w, Rw, t_rel, vp, trans, _ = chip_smoke.skin_inputs((2, 5, 22), 0,
+                                                        device="cpu")
+    if case == "float64":
+        vp = vp.double()
+    elif case == "strided":
+        vp = vp.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "shape":
+        trans = trans[:1]
+    elif case == "joints":
+        w, Rw, t_rel = (torch.cat([t] * 3, dim=1) for t in (w, Rw, t_rel))
+    return w, Rw, t_rel, vp, trans
+
+
+@pytest.mark.parametrize("case, match", [
+    ("float64", "float64"), ("strided", "strided"), ("shape", "must be"),
+    ("joints", "joints"), ("cpu", "CUDA device")])
+def test_skin_wrapper_checks_inputs(case, match):
+    """The skinning wrappers refuse what the kernels do not take (another
+    dtype, a strided tensor, a wrong shape, more joints than the kernels
+    hold, tensors off the card) instead of converting it."""
+    w, Rw, t_rel, vp, trans = _skin_case(case)
+    with pytest.raises(ValueError, match=match):
+        SK.skin_forward(w, Rw, t_rel, vp, trans)
+    with pytest.raises(ValueError, match=match):
+        SK.skin_backward(w, Rw, vp, vp if case != "shape" else vp[:, :1])
