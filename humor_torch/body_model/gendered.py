@@ -13,8 +13,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from humor_torch.body_model import constants as C
-from humor_torch.body_model.smpl import SmplModel, SmplOutput, forward
+from humor_torch.body_model.smpl import SmplModel, SmplOutput, forward, joints
 from humor_torch.ops import transforms
+from humor_torch.utils import profiling as PR
 
 def gendered_forward(models: Dict[str, SmplModel],
                      gender_ids: torch.Tensor,   # (B,) ints indexing `order`
@@ -43,15 +44,21 @@ def make_rollout_joint_fn(models: Dict[str, SmplModel],
                           order: Tuple[str, ...] = ("male", "female")):
     """HuMoR-Qual joint feedback for models.humor.scheduled_sampling:
     (trans (B, 3), root_orient_mat (B, 9), pose_body_mat (B, 21*9)) ->
-    the gendered SMPL forward's flat (B, 22*3) joints."""
+    `gendered_forward`'s flat (B, 22*3) joints, bit for bit, through
+    smpl.joints: no vertex is blended or skinned. Counts its rows in
+    `smpl.feedback_rows`."""
 
     def joint_fn(trans, root_orient_mat, pose_body_mat):
         B = trans.shape[0]
+        PR.count("smpl.feedback_rows", B)
         root_aa = transforms.rotmat_to_aa(root_orient_mat.reshape(B, 3, 3))
         pose_aa = transforms.rotmat_to_aa(
             pose_body_mat.reshape(B, -1, 3, 3)).reshape(B, -1)
-        out = gendered_forward(models, gender_ids, root_aa, pose_aa, betas,
-                               trans, order=order)
-        return out.Jtr[:, :C.NUM_SMPL_JOINTS].reshape(B, -1)
+        j = None
+        for gid, name in enumerate(order):
+            out = joints(models[name], root_aa, pose_aa, betas, trans)
+            sel = (gender_ids == gid)[:, None, None]
+            j = out if j is None else torch.where(sel, out, j)
+        return j[:, :C.NUM_SMPL_JOINTS].reshape(B, -1)
 
     return joint_fn

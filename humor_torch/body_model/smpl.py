@@ -163,6 +163,14 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, rest_joints: torch.Tensor,
     return tw, Rw, t_rel
 
 
+def _shaped(model: SmplModel, betas: torch.Tensor):
+    """The shaped template (B, V, 3) and its rest joints (B, J, 3)."""
+    v_shaped = model.v_template + torch.einsum("bl,vcl->bvc", betas,
+                                               model.shapedirs)
+    rest_joints = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
+    return v_shaped, rest_joints
+
+
 def lbs(model: SmplModel, betas: torch.Tensor, rot_mats: torch.Tensor,
         trans: torch.Tensor, vert_ids: Optional[np.ndarray] = None,
         compute_dtype: Optional[torch.dtype] = None) -> SmplOutput:
@@ -182,9 +190,7 @@ def lbs(model: SmplModel, betas: torch.Tensor, rot_mats: torch.Tensor,
     and the kinematic chain stay f32, so the joints equal the f32 call's.
     For the training loss bodies only: the vertices move by about one
     bf16 step of their size (up to ~2e-2 m at 2,000 x 6,890)."""
-    v_shaped = model.v_template + torch.einsum("bl,vcl->bvc", betas,
-                                               model.shapedirs)
-    rest_joints = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
+    v_shaped, rest_joints = _shaped(model, betas)
     B = betas.shape[0]
     n_extra = int(model.vtx_joint_ids.size)
     if vert_ids is not None:
@@ -232,6 +238,34 @@ def rest_root_joint(model: SmplModel, betas: torch.Tensor) -> torch.Tensor:
     return torch.einsum("v,bvc->bc", model.j_regressor[0], v_shaped)
 
 
+def _rot_mats(model: SmplModel, root_orient: torch.Tensor,
+              pose_body: torch.Tensor, betas: torch.Tensor,
+              pose_hand: Optional[torch.Tensor]) -> torch.Tensor:
+    """Every joint's rotation (B, J, 3, 3) from `forward`'s arguments."""
+    B = betas.shape[0]
+    J = model.num_joints
+    n_body = min(C.NUM_BODY_JOINTS, J - 1)
+    if root_orient.dim() == 2:
+        root_mat = transforms.aa_to_rotmat(root_orient)[:, None]
+    else:
+        root_mat = root_orient.reshape(B, 1, 3, 3)
+    if pose_body.dim() == 2:
+        body_mat = transforms.aa_to_rotmat(pose_body.reshape(B, n_body, 3))
+    else:
+        body_mat = pose_body.reshape(B, n_body, 3, 3)
+    mats = [root_mat, body_mat]
+    n_rest = J - 1 - n_body
+    if n_rest > 0:
+        if pose_hand is not None:
+            mats.append(transforms.aa_to_rotmat(
+                pose_hand.reshape(B, n_rest, 3)))
+        else:
+            mats.append(torch.eye(3, dtype=betas.dtype,
+                                  device=betas.device).expand(
+                                      B, n_rest, 3, 3))
+    return torch.cat(mats, dim=1)
+
+
 def forward(model: SmplModel, root_orient: torch.Tensor,
             pose_body: torch.Tensor, betas: torch.Tensor,
             trans: torch.Tensor, pose_hand: Optional[torch.Tensor] = None,
@@ -242,27 +276,21 @@ def forward(model: SmplModel, root_orient: torch.Tensor,
     compute_dtype: see `lbs` (the loss bodies' bf16 per-vertex
     pipeline)."""
     with PR.span("smpl"):
-        B = betas.shape[0]
-        J = model.num_joints
-        n_body = min(C.NUM_BODY_JOINTS, J - 1)
-        if root_orient.dim() == 2:
-            root_mat = transforms.aa_to_rotmat(root_orient)[:, None]
-        else:
-            root_mat = root_orient.reshape(B, 1, 3, 3)
-        if pose_body.dim() == 2:
-            body_mat = transforms.aa_to_rotmat(
-                pose_body.reshape(B, n_body, 3))
-        else:
-            body_mat = pose_body.reshape(B, n_body, 3, 3)
-        mats = [root_mat, body_mat]
-        n_rest = J - 1 - n_body
-        if n_rest > 0:
-            if pose_hand is not None:
-                mats.append(transforms.aa_to_rotmat(
-                    pose_hand.reshape(B, n_rest, 3)))
-            else:
-                mats.append(torch.eye(3, dtype=betas.dtype,
-                                      device=betas.device).expand(
-                                          B, n_rest, 3, 3))
-        return lbs(model, betas, torch.cat(mats, dim=1), trans,
+        return lbs(model, betas,
+                   _rot_mats(model, root_orient, pose_body, betas,
+                             pose_hand), trans,
                    vert_ids=vert_ids, compute_dtype=compute_dtype)
+
+
+def joints(model: SmplModel, root_orient: torch.Tensor,
+           pose_body: torch.Tensor, betas: torch.Tensor,
+           trans: torch.Tensor) -> torch.Tensor:
+    """`forward`'s posed joints (B, J, 3) alone (hands flat), bit for bit,
+    without the vertex joints: the kinematic chain over the shaped
+    template's rest joints, with no vertex blended or skinned."""
+    with PR.span("smpl"):
+        _, rest_joints = _shaped(model, betas)
+        posed, _, _ = _rigid_transform_chain(
+            _rot_mats(model, root_orient, pose_body, betas, None),
+            rest_joints, model.parents)
+        return posed + trans[:, None, :]

@@ -34,6 +34,7 @@ from humor_torch.models.canonical import (
 from humor_torch.models.state import StateSpec, make_specs
 from humor_torch.ops import transforms
 from humor_torch.ops.mlp import init_mlp, mlp_apply, resolve_compute_dtype
+from humor_torch.utils import profiling as PR
 
 MLP_WIDTH = 1024
 
@@ -461,7 +462,8 @@ def scheduled_sampling(cfg: HumorConfig, params: Dict,
         if smpl_joint_fn is not None and "joints" in fed:
             fed = dict(fed)
             with torch.set_grad_enabled(not cfg.detach_sched_samp
-                                        and torch.is_grad_enabled()):
+                                        and torch.is_grad_enabled()), \
+                    PR.span("train.smpl_feedback"):
                 fed["joints"] = smpl_joint_fn(
                     fed["trans"], fed["root_orient"], fed["pose_body"])
         local = _slide(cfg, local, fed, _heading_frame(fed, t2j))
