@@ -102,9 +102,15 @@ Phases, each of which fails the run (non-zero exit) on error:
      give finite losses and outputs. Training launches neither the
      rollout nor the nearest-neighbour kernel (JAX trains through plain
      XLA too); a supervised and a scheduled-sampling chunk of 8 steps at
-     200 x 10 each launch 4 skinning forwards and 2 backwards a step and
-     no gemvx/gemv2N launch of SKIN_LIBRARY_MS (the per-vertex GEMVs are
-     gone, the kinematic chain's 3 x 3 ones stay; check_skin_chunk);
+     200 x 10, graphed as the trainer runs them, call the skinning
+     wrappers 4 times forward and 2 backward in each step the host runs
+     (step 0 and the capture) and none in the 7 replays, and 2 replays
+     profiled launch 4 skinning forwards and 2 backwards each on the
+     card and no gemvx/gemv2N launch of SKIN_LIBRARY_MS (the per-vertex
+     GEMVs are gone, the kinematic chain's 3 x 3 ones stay;
+     check_skin_chunk). The train CLIs' printed launches are the
+     wrappers' host calls: on the graphed chunk, those of step 0 and the
+     capture, none of a replay;
   9. the dataset-level entry points on a temporary directory (two
      processed synthetic sequences, 159 frames each, the 6890-vertex
      bodies as SMPL+H npz files): the AMASS fit observations (noisy
@@ -734,6 +740,10 @@ SKIN_SHAPE = (2000, V_VERTS, 22)   # TRAIN_B x TRAIN_T rows
 SKIN_RTOL = 1e-5               # max-scaled: the same f32 sums in another order
 SKIN_TIMED = 20
 SKIN_CHUNK_K = 8               # the trainer's k steps a chunk
+SKIN_TRACED_K = 2              # replays profiled: ~20,000 kernels
+# what the train CLIs' launch counts are: the wrappers count host calls
+GRAPHED_LAUNCHES = ("the host: eager steps, and step 0 and the capture of a "
+                    "graphed chunk; its replays call no wrapper")
 SKIN_BODIES = {"skin_fwd": 4, "skin_bwd": 2}   # a step: 2 genders x (pred, gt)
 # the einsums' batched GEMVs over (rows, vertices), ~12 ms a call at the
 # training shape on an H100 (0.39 s of gemvx over 32 calls a chunk); the
@@ -1955,13 +1965,19 @@ def time_train_steps(device="cuda", batch=TRAIN_B, reps=TRAIN_TIMED):
     return rec
 
 
-def check_skin_chunk(device="cuda", batch=TRAIN_B, k=SKIN_CHUNK_K):
-    """One supervised and one scheduled-sampling chunk of k steps at the
-    config's 200 x 10, profiled: each must launch SKIN_BODIES kernels of
-    each kind a step (by the counters and by the device trace) and no
-    launch of SKIN_LIBRARY_KERNELS may take SKIN_LIBRARY_MS (the per-vertex
-    GEMVs are gone; the chain's stay). Prints the chunk's busiest device
-    kernels. Returns the launches."""
+def check_skin_chunk(device="cuda", batch=TRAIN_B, k=SKIN_CHUNK_K,
+                     traced_k=SKIN_TRACED_K):
+    """A supervised and a scheduled-sampling chunk of k steps at the
+    config's 200 x 10, run as the trainer runs them (make_multi_steps:
+    step 0 eagerly, the capture, k - 1 replays of the CUDA graph): each
+    step the host runs (the eager one and the capture) must call the
+    skinning wrappers SKIN_BODIES times, and the replays none. Then a
+    chunk of `traced_k` replays of the same step, profiled (a short one:
+    a step is ~10,000 kernels, and the profiler drops records past its
+    buffer): the device trace must hold SKIN_BODIES skinning kernels of
+    each kind a replay, and no launch of SKIN_LIBRARY_KERNELS may take
+    SKIN_LIBRARY_MS (the per-vertex GEMVs are gone; the chain's stay).
+    Prints the replays' busiest device kernels. Returns the launches."""
     import collections
 
     import torch
@@ -1972,26 +1988,35 @@ def check_skin_chunk(device="cuda", batch=TRAIN_B, k=SKIN_CHUNK_K):
     from humor_torch.models import humor as H
     from humor_torch.ops import skinning as SK
     from humor_torch.train import step as TS
+    from humor_torch.utils import profiling as PR
     from humor_torch.utils.stats import to_host
 
     bodies = {n: b.to(device) for n, b in train_bodies().items()}
     cfg, opt = H.HumorConfig(), TS.make_optimizer()
     sup, ss, _ = TS.make_train_steps(cfg, LossConfig(), opt, bodies)
-    multi_sup, multi_ss = TS.make_multi_steps(sup, ss, k)
     stacked = TS.stack_batches([train_batch(bodies, batch, seed=30 + i,
                                             device=device) for i in range(k)])
+    short = TS.tree_map(lambda x: x[:traced_k], stacked)
     state = TS.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
                                 device)
     gen = torch.Generator(device=device).manual_seed(2)
     rec = {}
-    for name, run in (("supervised", lambda st: multi_sup(
-            st, stacked, 10, generator=gen)), ("sched_samp", lambda st:
-            multi_ss(st, stacked, 10, 0.5, generator=gen))):
-        state, _ = run(state)                  # warm-up
-        torch.cuda.synchronize()
+    for name, i in (("supervised", 0), ("sched_samp", 1)):
+        extra = (0.5,) if i else ()
+        multi = TS.make_multi_steps(sup, ss, k)[i]
+        traced = TS.make_multi_steps(sup, ss, traced_k)[i]
         before = dict(SK.launches)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            state, stats = run(state)
+        with PR.recording() as counted:
+            state, stats = multi(state, stacked, 10, *extra, generator=gen)
+            to_host(stats)
+        host = dict(counted.counters)
+        at_host = {kk: SK.launches[kk] - before[kk] for kk in before}
+        state, _ = traced(state, short, 10, *extra, generator=gen)  # capture
+        torch.cuda.synchronize()
+        mid = dict(SK.launches)
+        with PR.recording() as replayed, profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            state, stats = traced(state, short, 10, *extra, generator=gen)
             to_host(stats)
             torch.cuda.synchronize()
         events = [(e.name, e.time_range.elapsed_us() / 1e3)
@@ -2000,7 +2025,13 @@ def check_skin_chunk(device="cuda", batch=TRAIN_B, k=SKIN_CHUNK_K):
         for n, ms in events:
             by_name[n[:60]] += ms
         rec[name] = {
-            "launches": {kk: SK.launches[kk] - before[kk] for kk in before},
+            "host_steps": host.get("train.eager_steps", 0)
+            + host.get("train.graph_captures", 0),
+            "replays": host.get("train.graph_replays", 0),
+            "launches_at_host": at_host,
+            "traced_replays": replayed.counters.get("train.graph_replays", 0),
+            "traced_launches_at_host": {kk: SK.launches[kk] - mid[kk]
+                                        for kk in before},
             "device": {kk: sum(kk + "_kernel" in n for n, _ in events)
                        for kk in SKIN_BODIES},
             "library": {kk: {"count": sum(kk in n for n, _ in events),
@@ -2010,15 +2041,22 @@ def check_skin_chunk(device="cuda", batch=TRAIN_B, k=SKIN_CHUNK_K):
             "device_s": sum(ms for _, ms in events) / 1e3,
             "top_s": sorted(((n, ms / 1e3) for n, ms in by_name.items()),
                             key=lambda t: -t[1])[:6]}
-    print("[skin chunk k=%d] " % k + json.dumps(rec))
+    print("[skin chunk k=%d, traced k=%d] " % (k, traced_k) + json.dumps(rec))
     for name, r in rec.items():
-        want = {kk: n * k for kk, n in SKIN_BODIES.items()}
-        if (r["launches"] != want or r["device"] != want
+        want_host = {kk: n * 2 for kk, n in SKIN_BODIES.items()}
+        want_device = {kk: n * traced_k for kk, n in SKIN_BODIES.items()}
+        if (r["host_steps"] != 2 or r["replays"] != k - 1
+                or r["traced_replays"] != traced_k
+                or r["launches_at_host"] != want_host
+                or any(r["traced_launches_at_host"].values())
+                or r["device"] != want_device
                 or any(lib["longest_ms"] >= SKIN_LIBRARY_MS
                        for lib in r["library"].values())):
-            fail(f"a {name} chunk of {k} steps should launch {want} skinning "
-                 f"kernels and no {SKIN_LIBRARY_KERNELS} of "
-                 f"{SKIN_LIBRARY_MS} ms: {r}")
+            fail(f"a {name} chunk of {k} steps should run 2 steps on the "
+                 f"host, each calling {SKIN_BODIES} skinnings, and replay "
+                 f"{k - 1}; {traced_k} replays should launch {want_device} "
+                 f"skinning kernels on the card and no {SKIN_LIBRARY_KERNELS}"
+                 f" of {SKIN_LIBRARY_MS} ms: {r}")
     return rec
 
 
@@ -2080,6 +2118,7 @@ def run_training(models, device="cuda", batch=TRAIN_B, steps=TRAIN_STEPS,
             "first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,
             "phases": phases, "checkpoints": ckpts,
+            "launches_counted_at": GRAPHED_LAUNCHES,
             "launches": launches["train_cli"]}))
         if (len(rows) != want_rows
                 or rows[-1]["step"] != TRAIN_EPOCHS * steps
@@ -2111,6 +2150,7 @@ def run_training(models, device="cuda", batch=TRAIN_B, steps=TRAIN_STEPS,
         print("[train qual cli] " + json.dumps({
             "seconds": time.perf_counter() - t0, "steps": len(qrows),
             "losses": [r["total_loss"] for r in qrows],
+            "launches_counted_at": GRAPHED_LAUNCHES,
             "launches": launches["train_qual_cli"]}))
         if len(qrows) != 4 or "gt_p=0.00" not in qlog or not np.isfinite(
                 [v for r in qrows for v in r.values()]).all():

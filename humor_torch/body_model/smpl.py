@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from humor_torch.body_model import constants as C
+from humor_torch.device import device_index
 from humor_torch.ops import skinning, transforms
 from humor_torch.utils import profiling as PR
 
@@ -149,7 +150,9 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, rest_joints: torch.Tensor,
     skinning translations t - R @ rest_joint (B, J, 3))."""
     J = rot_mats.shape[1]
     rel = torch.cat([rest_joints[:, :1], rest_joints[:, 1:]
-                     - rest_joints[:, np.asarray(parents[1:])]], dim=1)
+                     - rest_joints[:, device_index(parents[1:],
+                                                   rest_joints.device)]],
+                    dim=1)
     world_rots = [rot_mats[:, 0]]
     world_pos = [rest_joints[:, 0]]
     for j in range(1, J):
@@ -225,8 +228,8 @@ def lbs(model: SmplModel, betas: torch.Tensor, rot_mats: torch.Tensor,
             extra = v_out[:, extra_start:]
             v_out = v_out[:, :extra_start]
         else:
-            extra = v_out[:, torch.as_tensor(model.vtx_joint_ids.astype(
-                np.int64), device=v_out.device)]
+            extra = v_out[:, device_index(model.vtx_joint_ids,
+                                          v_out.device)]
         joints_out = torch.cat([joints_out, extra], dim=1)
     return SmplOutput(v=v_out, Jtr=joints_out)
 

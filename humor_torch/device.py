@@ -11,7 +11,12 @@ accumulates them, not in bf16.
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
+import numpy as np
 import torch
+
+_INDEX: Dict[Tuple[bytes, torch.device], torch.Tensor] = {}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -26,3 +31,16 @@ def resolve_device(device="cuda") -> torch.device:
             "humor_torch entry points run on the GPU by default and no CUDA "
             "device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_index(values, device) -> torch.Tensor:
+    """The int64 index tensor of `values` on `device`, made once and kept:
+    indexing with it copies nothing from the host, so a step that picks
+    constant ids (a skeleton's parents, the contact joints) runs without
+    a host-to-device copy and can be captured in a CUDA graph."""
+    arr = np.ascontiguousarray(values, dtype=np.int64).reshape(-1)
+    key = (arr.tobytes(), torch.device(device))
+    idx = _INDEX.get(key)
+    if idx is None:
+        idx = _INDEX[key] = torch.as_tensor(arr, device=device)
+    return idx

@@ -19,6 +19,7 @@ import torch
 
 from humor_torch.body_model import constants as C
 from humor_torch.body_model.gendered import gendered_forward
+from humor_torch.device import device_index
 from humor_torch.ops import transforms
 from humor_torch.utils import profiling as PR
 
@@ -107,8 +108,11 @@ def log_normal(x, m, v):
 
 
 def kl_anneal_weight(cfg: LossConfig, epoch, device="cpu") -> torch.Tensor:
-    """Linear or cyclic KL annealing weight in [0, 1] (float32)."""
-    e = torch.tensor(float(epoch), dtype=torch.float32, device=device)
+    """Linear or cyclic KL annealing weight in [0, 1] (float32). `epoch`
+    is a number or a float32 0-d tensor on `device` (a CUDA-graphed step
+    reads the epoch from the device, train/step.make_multi_steps)."""
+    e = (epoch if torch.is_tensor(epoch) else
+         torch.tensor(float(epoch), dtype=torch.float32, device=device))
     if cfg.kl_loss_cycle_len > 0:
         e = torch.remainder(e, cfg.kl_loss_cycle_len)
         start, end = 0.0, cfg.kl_loss_cycle_len / 2.0
@@ -178,7 +182,7 @@ def elbo_loss(cfg: LossConfig,
             and "joints_vel" in pred):
         probs = torch.sigmoid(pred["contacts"])                 # (N, 9)
         jv = pred["joints_vel"].reshape(-1, C.NUM_SMPL_JOINTS, 3)
-        cv = jv[:, C.CONTACT_INDS]
+        cv = jv[:, device_index(C.CONTACT_INDS, jv.device)]
         term = torch.mean(probs * torch.sum(cv * cv, dim=-1))
         stats["contacts_vel_loss"] = term
         loss = loss + cfg.contacts_vel_loss * term
@@ -221,7 +225,8 @@ def elbo_loss(cfg: LossConfig,
                 stats["smpl_joint_consistency_loss"] = term
                 loss = loss + cfg.smpl_joint_consistency_loss * term
             if cfg.smpl_vert_consistency_loss > 0.0 and "verts" in pred:
-                kv = pred_body.v[:, C.KEYPT_VERTS]
+                kv = pred_body.v[:, device_index(C.KEYPT_VERTS,
+                                                 pred_body.v.device)]
                 rv = pred["verts"].reshape(N, C.NUM_KEYPT_VERTS, 3)
                 term = torch.mean(torch.square(kv - rv))
                 stats["smpl_vert_consistency_loss"] = term

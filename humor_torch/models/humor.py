@@ -431,6 +431,11 @@ def scheduled_sampling(cfg: HumorConfig, params: Dict,
 
     use_gt: (T,) booleans, one draw shared by the batch (step 0 always
     takes GT); drawn as uniform(generator) < use_gt_p when not given.
+    The choice is made on the device: every step after the first
+    computes the fed-back input and a `where` on use_gt[t] picks it or
+    the GT one, so the host never reads the draw and one program serves
+    every draw (the values are the branch's own; with detach_sched_samp
+    off, the input not picked gets exactly zero gradient).
     eps: (T, B, latent) posterior noise, else drawn from `generator`.
     `smpl_joint_fn(trans, root_orient_mat, pose_body_mat) -> (B, 66)` is
     HuMoR-Qual training: the fed-back joints come from an SMPL forward
@@ -441,15 +446,15 @@ def scheduled_sampling(cfg: HumorConfig, params: Dict,
                           device=generator.device if generator is not None
                           else "cpu")
         use_gt = draw < use_gt_p
-    use_gt = [bool(u) for u in torch.as_tensor(use_gt).tolist()]
-    use_gt[0] = True
+    use_gt = torch.as_tensor(use_gt).to(device=x_past_seq.device,
+                                        dtype=torch.bool)
     local = {k: v for k, v in _as_window(cfg, init_state).items()
              if k in cfg.input_spec.names}
     t2j = _trans2joint(cfg, local)
     outs = []
     for t in range(T):
-        past_in = (x_past_seq[:, t] if use_gt[t]
-                   else state_to_input_window(cfg, local))
+        past_in = x_past_seq[:, t] if t == 0 else torch.where(
+            use_gt[t], x_past_seq[:, t], state_to_input_window(cfg, local))
         out = single_step(cfg, params, past_in, x_t_seq[:, t],
                           eps=None if eps is None else eps[t],
                           generator=generator)

@@ -66,9 +66,11 @@ class _Optimizer:
     clip_by_global_norm(grad_clip) (when set) and apply_if_finite; the
     subclass gives the moments and the direction. State: {"count",
     "notfinite_count", "total_notfinite", "last_finite", "mu", "nu"}; all
-    on the params' device, so a step never waits for the host. The bias
+    on the params' device and updated in place, so a step never waits for
+    the host and a captured step replays on its own outputs. The bias
     corrections and the rate are in the params' dtype (float32 as in the
-    JAX package; float64 as optax computes under x64)."""
+    JAX package; float64 as optax computes under x64), made by device-side
+    fills."""
 
     lr: float = 1e-4
     boundaries: Tuple[Tuple[int, float], ...] = ()
@@ -89,20 +91,24 @@ class _Optimizer:
     def learning_rate(self, count: torch.Tensor,
                       dtype=torch.float32) -> torch.Tensor:
         """piecewise_constant_schedule at `count`."""
-        v = torch.tensor(self.lr, dtype=dtype, device=count.device)
+        v = torch.full((), self.lr, dtype=dtype, device=count.device)
         for boundary, scale in sorted(self.boundaries):
             v = torch.where(count >= boundary, v * scale, v)
         return v
 
-    def _step(self, g, mu, nu, count_inc, dtype):
+    def _biases(self, count_inc, dtype) -> Tuple[torch.Tensor, ...]:
+        """The bias corrections `_step` divides by, made once a step."""
+        raise NotImplementedError
+
+    def _step(self, g, mu, nu, biases):
         """-> (new mu, new nu, the direction the rate scales)."""
         raise NotImplementedError
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
                params: Any) -> Dict[str, Any]:
-        """Apply one step to the leaves of `params` in place (grads in
-        tree_leaves order); returns the new state."""
+        """Apply one step to the leaves of `params` and to `state`'s
+        tensors, in place (grads in tree_leaves order); returns `state`."""
         leaves = tree_leaves(params)
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         notfinite = torch.where(finite, torch.zeros_like(
@@ -117,25 +123,27 @@ class _Optimizer:
         dtype = leaves[0].dtype
         step_size = -self.learning_rate(count, dtype)
         count_inc = count + 1
+        biases = self._biases(count_inc, dtype)
         mus, nus = tree_leaves(state["mu"]), tree_leaves(state["nu"])
         for p, g, mu, nu in zip(leaves, grads, mus, nus):
-            mu_new, nu_new, direction = self._step(g, mu, nu, count_inc,
-                                                   dtype)
+            mu_new, nu_new, direction = self._step(g, mu, nu, biases)
             upd = step_size * direction
             p.copy_(torch.where(ok, p + upd, p))
             mu.copy_(torch.where(ok, mu_new, mu))
             nu.copy_(torch.where(ok, nu_new, nu))
-        return {**state, "count": torch.where(ok, count_inc, count),
-                "notfinite_count": notfinite, "last_finite": finite,
-                "total_notfinite": torch.where(
-                    finite, state["total_notfinite"],
-                    state["total_notfinite"] + 1)}
+        total = state["total_notfinite"]
+        for name, value in (
+                ("count", torch.where(ok, count_inc, count)),
+                ("notfinite_count", notfinite), ("last_finite", finite),
+                ("total_notfinite", torch.where(finite, total, total + 1))):
+            state[name].copy_(value)
+        return state
 
 
 def _bias(decay: float, count_inc: torch.Tensor, dtype) -> torch.Tensor:
     """optax's bias correction 1 - decay^count."""
-    return 1.0 - torch.tensor(decay, dtype=dtype,
-                              device=count_inc.device) ** count_inc
+    return 1.0 - torch.full((), decay, dtype=dtype,
+                            device=count_inc.device) ** count_inc
 
 
 class Adamax(_Optimizer):
@@ -148,11 +156,13 @@ class Adamax(_Optimizer):
     (optax 0.2.6 adds eps inside the max, as torch.optim.Adamax does; the
     two differ in where the bias correction and the rate are applied.)"""
 
-    def _step(self, g, mu, nu, count_inc, dtype):
+    def _biases(self, count_inc, dtype):
+        return (_bias(self.b1, count_inc, dtype),)
+
+    def _step(self, g, mu, nu, biases):
         mu_new = (1.0 - self.b1) * g + self.b1 * mu
         nu_new = torch.maximum(torch.abs(g) + self.eps, self.b2 * nu)
-        return mu_new, nu_new, (mu_new / _bias(self.b1, count_inc, dtype)) \
-            / nu_new
+        return mu_new, nu_new, (mu_new / biases[0]) / nu_new
 
 
 class Adam(_Optimizer):
@@ -165,11 +175,15 @@ class Adam(_Optimizer):
     with mu_hat = mu / (1 - b1^(count+1)), nu_hat = nu / (1 - b2^(count+1))
     (eps outside the root)."""
 
-    def _step(self, g, mu, nu, count_inc, dtype):
+    def _biases(self, count_inc, dtype):
+        return (_bias(self.b1, count_inc, dtype),
+                _bias(self.b2, count_inc, dtype))
+
+    def _step(self, g, mu, nu, biases):
         mu_new = (1.0 - self.b1) * g + self.b1 * mu
         nu_new = (1.0 - self.b2) * g ** 2 + self.b2 * nu
-        mu_hat = mu_new / _bias(self.b1, count_inc, dtype)
-        nu_hat = nu_new / _bias(self.b2, count_inc, dtype)
+        mu_hat = mu_new / biases[0]
+        nu_hat = nu_new / biases[1]
         return mu_new, nu_new, mu_hat / (torch.sqrt(nu_hat) + self.eps)
 
 
@@ -294,6 +308,32 @@ def _global_noise(generator, rows: int, latent: int, dtype, device
                        else device).to(device)
 
 
+def step_draws(cfg: H.HumorConfig, kind: str, batch, names,
+               generator: Optional[torch.Generator], like: torch.Tensor,
+               use_gt_p: float = 1.0, world: int = 1
+               ) -> Dict[str, torch.Tensor]:
+    """The draws among `names` that one step of `kind` ("sup" or "ss")
+    makes from `generator` on a global batch of `world` times `batch`'s
+    B rows, in the order the model draws them: scheduled sampling's (T,)
+    curriculum choice (uniform < use_gt_p), then the posterior noise,
+    (world B T, latent) over the supervised step's flattened rows or
+    (T, world B, latent), a frame at a time, over the rollout's. The
+    noise takes `like`'s dtype and device."""
+    B, T = batch["data_in"]["trans"].shape[:2]
+    out = {}
+    if "use_gt" in names:
+        out["use_gt"] = torch.rand(
+            T, generator=generator,
+            device=generator.device if generator is not None
+            else "cpu") < use_gt_p
+    if "eps" in names:
+        noise = lambda rows: _global_noise(       # noqa: E731
+            generator, rows, cfg.latent_size, like.dtype, like.device)
+        out["eps"] = (noise(world * B * T) if kind == "sup" else
+                      torch.stack([noise(world * B) for _ in range(T)]))
+    return out
+
+
 def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
                      opt: _Optimizer,
                      smpl_models: Optional[Dict] = None,
@@ -312,8 +352,8 @@ def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
     With a `mesh` the batch is this rank's rows of a global batch of W
     times as many (parallel.mesh.shard_batch). Every rank draws the
     global posterior noise (and the curriculum's choices) from its copy
-    of the generator, in the order the single-rank step draws them, and
-    keeps its own rows; `eps` and `use_gt`, when given, are the global
+    of the generator, by step_draws as the single-rank step draws them,
+    and keeps its own rows; `eps` and `use_gt`, when given, are the global
     draws. Each rank's loss is the mean over its rows, and every ELBO
     term (losses/elbo.py) is a mean over rows, so over equal shards the
     mean of the ranks' losses is the global loss: the gradients are
@@ -326,37 +366,20 @@ def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
     ss_loss = sched_samp_loss_fn(cfg, loss_cfg, smpl_models,
                                  use_smpl_joint_inputs=use_smpl_joint_inputs)
 
-    def _local(batch):
-        """(B_local, T, rows of a global batch)."""
-        B, T = batch["data_in"]["trans"].shape[:2]
-        return B, T, slice(None) if mesh is None else P.local_rows(
-            mesh, B * mesh.size)
-
-    def _sup_eps(params, batch, eps, generator):
-        if mesh is None:
-            return eps
-        B, T, rows = _local(batch)
-        if eps is None:
-            leaf = tree_leaves(params)[0]
-            eps = _global_noise(generator, B * mesh.size * T,
-                                cfg.latent_size, leaf.dtype, leaf.device)
-        return eps[rows.start * T:rows.stop * T]
-
-    def _ss_draws(params, batch, use_gt_p, use_gt, eps, generator):
-        if mesh is None:
-            return use_gt, eps
-        B, T, rows = _local(batch)
-        if use_gt is None:
-            use_gt = torch.rand(
-                T, generator=generator,
-                device=generator.device if generator is not None
-                else "cpu") < use_gt_p
-        if eps is None:
-            leaf = tree_leaves(params)[0]
-            eps = torch.stack([_global_noise(
-                generator, B * mesh.size, cfg.latent_size, leaf.dtype,
-                leaf.device) for _ in range(T)])
-        return use_gt, eps[:, rows]
+    def _draws(kind, params, batch, given, generator, use_gt_p=1.0):
+        """`given` (global draws, None where not given) completed by
+        step_draws and cut to this rank's rows."""
+        missing = [name for name, v in given.items() if v is None]
+        draws = {**given, **step_draws(
+            cfg, kind, batch, missing, generator, tree_leaves(params)[0],
+            use_gt_p, 1 if mesh is None else mesh.size)}
+        if mesh is not None:
+            B, T = batch["data_in"]["trans"].shape[:2]
+            rows = P.local_rows(mesh, B * mesh.size)
+            eps = draws["eps"]
+            draws["eps"] = (eps[rows.start * T:rows.stop * T]
+                            if kind == "sup" else eps[:, rows])
+        return draws
 
     def _mean_over_ranks(stats):
         keys = sorted(stats)
@@ -382,30 +405,36 @@ def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
     def supervised_step(state: TrainState, batch, epoch, eps=None,
                         generator=None):
         with PR.span("train.step"):
-            eps = _sup_eps(state.params, batch, eps, generator)
-            loss, stats = sup_loss(state.params, batch, epoch, eps=eps,
-                                   generator=generator)
+            eps = _draws("sup", state.params, batch, {"eps": eps},
+                         generator)["eps"]
+            loss, stats = sup_loss(state.params, batch, epoch, eps=eps)
             return _update(state, loss, stats)
 
     def sched_samp_step(state: TrainState, batch, epoch, use_gt_p,
                         use_gt=None, eps=None, generator=None):
         with PR.span("train.step"):
-            use_gt, eps = _ss_draws(state.params, batch, use_gt_p, use_gt,
-                                    eps, generator)
+            draws = _draws("ss", state.params, batch,
+                           {"use_gt": use_gt, "eps": eps}, generator,
+                           use_gt_p)
             loss, stats = ss_loss(state.params, batch, epoch, use_gt_p,
-                                  use_gt=use_gt, eps=eps,
-                                  generator=generator)
+                                  **draws)
             return _update(state, loss, stats)
 
     @torch.no_grad()
     def eval_step(params, batch, epoch, eps=None, generator=None):
-        eps = _sup_eps(params, batch, eps, generator)
-        loss, stats = sup_loss(params, batch, epoch, eps=eps,
-                               generator=generator)
+        eps = _draws("sup", params, batch, {"eps": eps}, generator)["eps"]
+        loss, stats = sup_loss(params, batch, epoch, eps=eps)
         stats = {**stats, "total_loss": loss}
         return stats if mesh is None else _mean_over_ranks(stats)
 
+    supervised_step.cfg = sched_samp_step.cfg = cfg
+    supervised_step.mesh = sched_samp_step.mesh = mesh
     return supervised_step, sched_samp_step, eval_step
+
+
+def _signature(tree: Any) -> Tuple:
+    return tuple((tuple(x.shape), x.dtype, x.device)
+                 for x in tree_leaves(tree))
 
 
 def make_multi_steps(sup_step, ss_step, k: int):
@@ -424,12 +453,34 @@ def make_multi_steps(sup_step, ss_step, k: int):
     and `use_gt` with a leading k axis inject the draws, as the single
     steps take them. Under a mesh the chunk holds this rank's rows of
     each batch (shard_batch(..., batch_axis_index=1)).
-    """
 
-    def _run(step, state, stacked, draws, *extra, generator=None):
-        n = tree_leaves(stacked)[0].shape[0]
-        if n != k:
-            raise ValueError(f"a chunk of {n} batches for k = {k}")
+    A step on CUDA leaves that names no mesh (its `mesh` attribute, set
+    by make_train_steps; a wrapper that names none is taken as
+    single-rank), at k > 1, runs as the replay of one captured CUDA
+    graph: the forward, the ELBO, the gradient and the optimizer, with
+    the same kernels in the same order, dispatched by the card instead of
+    the host. The chunk copies each slice, its draws and the epoch into
+    the graph's static inputs and replays; draws not given are drawn from
+    `generator` outside the graph by step_draws, with the step's `cfg`,
+    as the eager steps draw them. The first chunk on a state (or at new
+    shapes) runs its first step eagerly, on the stream the capture uses,
+    as the warm-up, captures the step and replays it for the other k - 1:
+    every chunk is k real steps. One captured step is kept, keyed by the
+    state's tensors and the chunk's kind, shapes and dtypes; a chunk with
+    another key captures anew. On the CPU, under a mesh and at k = 1 the
+    steps run eagerly. Counters
+    (utils/profiling): "train.graph_captures", "train.graph_replays",
+    "train.eager_steps"; spans inside the step are recorded at its
+    capture, and each replay is a "train.graph_replay" span.
+    """
+    captured: Dict[str, Any] = {}   # the one captured step's record
+
+    def _graphable(step, state) -> bool:
+        return (k > 1 and tree_leaves(state.params)[0].is_cuda
+                and getattr(step, "mesh", None) is None)
+
+    def _eager(step, state, stacked, draws, extra, generator):
+        PR.count("train.eager_steps", k)
         stats = []
         for i in range(k):
             kw = {name: v[i] for name, v in draws.items() if v is not None}
@@ -439,14 +490,113 @@ def make_multi_steps(sup_step, ss_step, k: int):
         return state, {key: torch.stack([s[key] for s in stats])
                        for key in stats[0]}
 
+    def _chunk_draws(kind, step, state, stacked, draws, extra, generator):
+        """Every draw of the chunk on the params' device, (k, ...) each,
+        those not given drawn step by step as the eager steps draw."""
+        leaf = tree_leaves(state.params)[0]
+        missing = [name for name, v in draws.items() if v is None]
+        if missing:
+            made = [step_draws(step.cfg, kind,
+                               tree_map(lambda x: x[i], stacked), missing,
+                               generator, leaf, *extra[1:])
+                    for i in range(k)]
+            draws = {**draws, **{name: torch.stack([m[name] for m in made])
+                                 for name in missing}}
+        return {name: torch.as_tensor(v).to(leaf.device)
+                for name, v in sorted(draws.items())}
+
+    def _capture(step, state, stacked, draws, extra):
+        """Step 0 eagerly on the capture stream (the warm-up), then the
+        capture of the step on the static inputs; -> (the captured step's
+        record, step 0's stats)."""
+        dev = tree_leaves(state.params)[0].device
+        main = torch.cuda.current_stream(dev)
+        static = {"batch": tree_map(lambda x: torch.empty_like(x[0]),
+                                    stacked),
+                  "draws": {n: torch.empty_like(v[0])
+                            for n, v in draws.items()},
+                  "epoch": torch.empty((), dtype=torch.float32, device=dev)}
+        rec = {"static": static}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            _load(rec, stacked, draws, extra[0], 0)
+            PR.count("train.eager_steps")
+            _, stats = step(state, static["batch"], static["epoch"],
+                            *extra[1:], **static["draws"])
+            rec["keys"] = list(stats)
+            rec["dtypes"] = [stats[key].dtype for key in rec["keys"]]
+            first = torch.stack([stats[key] for key in rec["keys"]])
+        main.wait_stream(side)
+        first.record_stream(main)
+        owned = [id(x) for x in tree_leaves(state[:2])]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            new_state, stats = step(state, static["batch"], static["epoch"],
+                                    *extra[1:], **static["draws"])
+            rec["stats"] = torch.stack([stats[key] for key in rec["keys"]])
+        if [id(x) for x in tree_leaves(new_state[:2])] != owned:
+            raise RuntimeError("a captured train step must update its "
+                               "state's own tensors in place")
+        PR.count("train.graph_captures")
+        rec["graph"] = graph
+        return rec, first
+
+    def _load(rec, stacked, draws, epoch, i):
+        """Slice i of the chunk, its draws and the epoch into the static
+        inputs."""
+        static = rec["static"]
+        for dst, src in zip(tree_leaves(static["batch"]),
+                            tree_leaves(stacked)):
+            dst.copy_(src[i])
+        for name, dst in static["draws"].items():
+            dst.copy_(draws[name][i])
+        static["epoch"].fill_(float(epoch))
+
+    def _graphed(kind, step, state, stacked, draws, extra, generator):
+        draws = _chunk_draws(kind, step, state, stacked, draws, extra,
+                             generator)
+        key = (kind, _signature(stacked), _signature(draws),
+               tuple(x.data_ptr() for x in tree_leaves(state[:2])))
+        rec, cols = captured.get("step"), []
+        if rec is None or rec["key"] != key:
+            # drop the previous graph, and its memory pool, before capturing
+            rec = None
+            captured.clear()
+            rec, first = _capture(step, state, stacked, draws, extra)
+            rec["key"] = key
+            captured["step"] = rec
+            cols.append(first)
+        for i in range(len(cols), k):
+            _load(rec, stacked, draws, extra[0], i)
+            with PR.span("train.graph_replay"):
+                rec["graph"].replay()
+            PR.count("train.graph_replays")
+            cols.append(rec["stats"].clone())
+        rows = torch.stack(cols, dim=1).unbind(0)
+        return (TrainState(state.params, state.opt_state, state.step + k),
+                {key: row.to(dtype) for key, dtype, row in
+                 zip(rec["keys"], rec["dtypes"], rows)})
+
+    def _run(kind, step, state, stacked, draws, *extra, generator=None):
+        n = tree_leaves(stacked)[0].shape[0]
+        if n != k:
+            raise ValueError(f"a chunk of {n} batches for k = {k}")
+        if _graphable(step, state):
+            return _graphed(kind, step, state, stacked, draws, extra,
+                            generator)
+        return _eager(step, state, stacked, draws, extra, generator)
+
     def multi_sup(state, stacked, epoch, eps=None, generator=None):
-        return _run(sup_step, state, stacked, {"eps": eps}, epoch,
+        return _run("sup", sup_step, state, stacked, {"eps": eps}, epoch,
                     generator=generator)
 
     def multi_ss(state, stacked, epoch, use_gt_p, use_gt=None, eps=None,
                  generator=None):
-        return _run(ss_step, state, stacked, {"use_gt": use_gt, "eps": eps},
-                    epoch, use_gt_p, generator=generator)
+        return _run("ss", ss_step, state, stacked,
+                    {"use_gt": use_gt, "eps": eps}, epoch, use_gt_p,
+                    generator=generator)
 
     return multi_sup, multi_ss
 
