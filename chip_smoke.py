@@ -3021,10 +3021,10 @@ def compare_multi_steps(device="cuda", batch=TRAIN_CMP_B, k=PAR_K):
 def time_k_steps(device="cuda", batch=TRAIN_B, ks=K_TIMED,
                  steps=K_TIMED_STEPS):
     """Phase 12b: ms a supervised step at the config's 200 x 10 when the
-    steps run in chunks of k (make_multi_steps, the stats read once a
-    chunk as the trainer reads them), and the host synchronisations a
-    step (torch.cuda's sync debug mode counts them over one chunk), at
-    each k twice, in turns."""
+    steps run in chunks of k (make_multi_steps, every k through the
+    captured graph, the stats read once a chunk as the trainer reads
+    them), and the host synchronisations a step (torch.cuda's sync debug
+    mode counts them over one chunk), at each k twice, in turns."""
     import warnings
 
     import torch
@@ -3044,15 +3044,11 @@ def time_k_steps(device="cuda", batch=TRAIN_B, ks=K_TIMED,
     gen = torch.Generator(device=device).manual_seed(1)
     runners = {}
     for k in ks:
-        if k == 1:
-            runners[k] = (lambda st, i: sup(st, batches[i % len(batches)],
-                                            10, generator=gen))
-        else:
-            chunks = [TS.stack_batches(batches[j:j + k])
-                      for j in range(0, len(batches), k)]
-            multi = TS.make_multi_steps(sup, ss, k)[0]
-            runners[k] = (lambda st, i, m=multi, c=chunks:
-                          m(st, c[i % len(c)], 10, generator=gen))
+        chunks = [TS.stack_batches(batches[j:j + k])
+                  for j in range(0, len(batches), k)]
+        multi = TS.make_multi_steps(sup, ss, k)[0]
+        runners[k] = (lambda st, i, m=multi, c=chunks:
+                      m(st, c[i % len(c)], 10, generator=gen))
 
     def chunk(st, k, i):
         st, stats = runners[k](st, i)
@@ -3073,7 +3069,7 @@ def time_k_steps(device="cuda", batch=TRAIN_B, ks=K_TIMED,
                 torch.cuda.set_sync_debug_mode("default")
         syncs = [w for w in caught if "synchroniz" in str(w.message)]
         rec[k]["syncs_per_step"] = len(syncs) / k
-        if k == 1:                # where a single step synchronises
+        if k == 1:                # where a chunk of one step synchronises
             for w in syncs:
                 site = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
                 sites[site] = sites.get(site, 0) + 1

@@ -199,7 +199,7 @@ def lbs(model: SmplModel, betas: torch.Tensor, rot_mats: torch.Tensor,
     if vert_ids is not None:
         sel = np.concatenate([np.asarray(vert_ids, np.int64).reshape(-1),
                               model.vtx_joint_ids.astype(np.int64)])
-        sel_t = torch.as_tensor(sel, device=betas.device)
+        sel_t = device_index(sel, betas.device)
         v_shaped_s = v_shaped[:, sel_t]
         weights_s = model.lbs_weights[sel_t]
         P, V = model.posedirs.shape[0], model.num_verts

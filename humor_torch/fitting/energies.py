@@ -37,10 +37,10 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from humor_torch.body_model import constants as C
+from humor_torch.device import device_index
 from humor_torch.fitting import geometry as geo
 from humor_torch.fitting import robust as rob
 from humor_torch.models import gmm as gmm_lib
@@ -140,7 +140,7 @@ def joints2d_loss(cfg: EnergyConfig, obs2d: torch.Tensor,
         raise ValueError("joints2d_loss needs EnergyConfig.smpl2op_map")
     B, T = obs2d.shape[:2]
     full = torch.cat([joints3d, joints3d_extra], dim=2)
-    op = full[:, :, torch.as_tensor(cfg.smpl2op_map, device=full.device)]
+    op = full[:, :, device_index(cfg.smpl2op_map, full.device)]
     pts = op.reshape(B * T, C.OP_NUM_JOINTS, 3)
     eye = torch.eye(3, dtype=pts.dtype, device=pts.device).expand(
         B * T, 3, 3)
@@ -217,8 +217,7 @@ def joint_consistency_loss(smpl_joints: torch.Tensor,
 
 def bone_length_loss(rollout_joints: torch.Tensor) -> torch.Tensor:
     """Temporal bone-length consistency over the kinematic tree."""
-    parents = torch.as_tensor(np.asarray(C.SMPL_PARENTS[1:]),
-                              device=rollout_joints.device)
+    parents = device_index(C.SMPL_PARENTS[1:], rollout_joints.device)
     bones = rollout_joints[:, :, 1:] - rollout_joints[:, :, parents]
     lengths = torch.linalg.vector_norm(bones, dim=-1)
     diff = lengths[:, 1:] - lengths[:, :-1]
@@ -326,9 +325,9 @@ def _with_next(c: torch.Tensor, seq_interval: torch.Tensor, mesh):
     firsts = P.all_gather_batch(mesh, c[:, :1], dim=1)       # (K, W, ...)
     nxt = mesh.rank if last else mesh.rank + 1
     ext = torch.cat([c, firsts[:, nxt:nxt + 1]], dim=1)
-    rows = torch.as_tensor(list(range(lo, lo + Bl)) + [lo if last else
-                                                        lo + Bl],
-                           device=seq_interval.device)
+    rows = device_index(list(range(lo, lo + Bl)) + [lo if last else
+                                                     lo + Bl],
+                        seq_interval.device)
     valid = torch.ones(Bl, dtype=torch.bool, device=c.device)
     valid[-1] = not last
     return ext, seq_interval[rows], valid

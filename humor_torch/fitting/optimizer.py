@@ -59,7 +59,7 @@ import torch
 
 from humor_torch.body_model import constants as C
 from humor_torch.body_model import smpl as smpl_lib
-from humor_torch.device import resolve_device
+from humor_torch.device import device_index, resolve_device
 from humor_torch.fitting import energies as E
 from humor_torch.fitting import geometry as geo
 from humor_torch.fitting.lbfgs import make_mask, run_lbfgs
@@ -210,8 +210,7 @@ def smpl_results(body: smpl_lib.SmplModel, trans: torch.Tensor,
     if verts == "full":
         v = out.v.reshape(B, T, -1, 3)
         res["points3d"] = v
-        res["verts3d"] = v[:, :, torch.as_tensor(_keypt_ids(body),
-                                                 device=v.device)]
+        res["verts3d"] = v[:, :, device_index(_keypt_ids(body), v.device)]
     elif verts == "keypt":
         res["verts3d"] = out.v.reshape(B, T, -1, 3)
     return res
@@ -281,7 +280,7 @@ def _expand_contacts(logits: torch.Tensor):
     B, Tm1 = conf9.shape[:2]
     full = torch.zeros(B, Tm1, C.NUM_SMPL_JOINTS, dtype=conf9.dtype,
                        device=conf9.device)
-    full[:, :, torch.as_tensor(C.CONTACT_INDS, device=conf9.device)] = conf9
+    full[:, :, device_index(C.CONTACT_INDS, conf9.device)] = conf9
     conf = torch.cat([full[:, 0:1], full], dim=1)
     return conf, (conf > CONTACT_THRESH).to(conf9.dtype)
 
@@ -416,13 +415,12 @@ def _init_z_from_bones(cfg: TTOConfig, models: TTOModels, variables,
                             variables["root_orient"], pose,
                             variables["betas"])
         full = torch.cat([pred["joints3d"], pred["joints3d_extra"]], dim=2)
-        op3d = full[:, :, torch.as_tensor(cfg.energy.smpl2op_map,
-                                          device=full.device)]
+        op3d = full[:, :, device_index(cfg.energy.smpl2op_map,
+                                       full.device)]
         obs2d = observed["joints2d"][..., :2]
         conf2d = observed["joints2d"][..., 2]
         best_t = (conf2d > 0.0).sum(dim=2).argmax(dim=1)          # (B,)
-        edges = torch.as_tensor(np.asarray(C.OP_EDGE_LIST),
-                                device=full.device)
+        edges = device_index(C.OP_EDGE_LIST, full.device).reshape(-1, 2)
         b3d = torch.linalg.vector_norm(
             op3d[:, 0, edges[:, 0]] - op3d[:, 0, edges[:, 1]], dim=-1)
         rows = torch.arange(obs2d.shape[0], device=obs2d.device)

@@ -91,8 +91,9 @@ def make_batch_fns(dataset, cfg, window_frames: int, steps: int, seed: int,
     With the device store (cfg.data_on_device, data/device_store
     .maybe_stage) a batch moves only its start rows to the card, and
     train_chunks yields the k batches of a k-step chunk as one (k, B, ...)
-    gather, `(chunk, k)`, then the epoch's remainder as `(batch, 1)`
-    items; a chunk equals the k batches of train_batches stacked. Without
+    gather, `(chunk, k)`, then each batch of the epoch's remainder, its
+    own gather and noise draw, stacked alone, `(chunk, 1)`; a chunk
+    equals its batches of train_batches stacked. Without
     the store the windows are gathered on the host and copied, and
     train_chunks is None (the trainer stacks batches itself). Both paths
     give the same values at noise_std 0 (tests/test_torch_train_data.py).
@@ -105,6 +106,7 @@ def make_batch_fns(dataset, cfg, window_frames: int, steps: int, seed: int,
     from humor_torch.data.windows import (window_to_pairs,
                                           window_to_pairs_multi)
     from humor_torch.parallel.mesh import local_rows
+    from humor_torch.train.step import stack_batches
 
     S = cfg.model_steps_in
     to_pairs = ((lambda w: window_to_pairs(w)[:2]) if S == 1
@@ -157,7 +159,7 @@ def make_batch_fns(dataset, cfg, window_frames: int, steps: int, seed: int,
                     noise_std=cfg.data_noise_std, rows=rows)), k
             else:
                 for s in seeds:
-                    yield _store_batch(s), 1
+                    yield stack_batches([_store_batch(s)]), 1
             i += n
 
     return batches, chunks

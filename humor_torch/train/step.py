@@ -11,9 +11,10 @@ a step with a non-finite gradient leaves params, moments and the
 schedule's count unchanged, and the schedule's milestones count applied
 steps.
 
-`make_multi_steps` runs k steps over a chunk stacked along a new leading
-axis (`stack_batches`), as the JAX package scans them in one program; its
-stats stay on the device, so the trainer reads a chunk's stats once.
+`make_multi_steps` runs the steps of a chunk of up to k batches stacked
+along a new leading axis (`stack_batches`), as the JAX package scans them
+in one program, and on one card replays one captured CUDA graph a step;
+its stats stay on the device, so the trainer reads a chunk's stats once.
 Under a data-parallel `Mesh` (parallel/mesh.py) each rank steps on its
 rows of the batch; see make_train_steps.
 
@@ -432,43 +433,45 @@ def make_train_steps(cfg: H.HumorConfig, loss_cfg: LossConfig,
     return supervised_step, sched_samp_step, eval_step
 
 
-def _signature(tree: Any) -> Tuple:
-    return tuple((tuple(x.shape), x.dtype, x.device)
-                 for x in tree_leaves(tree))
+def _step_signature(chunk: Any) -> Tuple:
+    """One step's shapes, dtypes and devices: a chunk's, less its leading
+    axis."""
+    return tuple((tuple(x.shape[1:]), x.dtype, x.device)
+                 for x in tree_leaves(chunk))
 
 
 def make_multi_steps(sup_step, ss_step, k: int):
-    """(multi_sup, multi_ss): k steps over a chunk stacked along a new
-    leading axis (stack_batches), the counterpart of the JAX package's
-    lax.scan of k steps in one program.
+    """(multi_sup, multi_ss): the steps of a chunk of 1 to k batches
+    stacked along a new leading axis (stack_batches), the counterpart of
+    the JAX package's lax.scan of k steps in one program.
 
       multi_sup(state, stacked, epoch, eps=None, generator=None)
       multi_ss(state, stacked, epoch, use_gt_p, use_gt=None, eps=None,
                generator=None)
 
-    -> (state, stats) with every stat (k,), left on the device: nothing
-    is read by the host inside a chunk. The k steps run in order on the
-    chunk's slices and draw from `generator` in the order k calls of the
-    single step do, so a chunk equals k single steps bit for bit; `eps`
-    and `use_gt` with a leading k axis inject the draws, as the single
-    steps take them. Under a mesh the chunk holds this rank's rows of
-    each batch (shard_batch(..., batch_axis_index=1)).
+    -> (state, stats) with every stat (n,) for a chunk of n, left on the
+    device: nothing is read by the host inside a chunk. The n steps run
+    in order on the chunk's slices and draw from `generator` in the order
+    n calls of the single step do, so a chunk equals n single steps bit
+    for bit; `eps` and `use_gt` with a leading n axis inject the draws,
+    as the single steps take them. Under a mesh the chunk holds this
+    rank's rows of each batch (shard_batch(..., batch_axis_index=1)).
 
     A step on CUDA leaves that names no mesh (its `mesh` attribute, set
     by make_train_steps; a wrapper that names none is taken as
-    single-rank), at k > 1, runs as the replay of one captured CUDA
-    graph: the forward, the ELBO, the gradient and the optimizer, with
-    the same kernels in the same order, dispatched by the card instead of
-    the host. The chunk copies each slice, its draws and the epoch into
-    the graph's static inputs and replays; draws not given are drawn from
+    single-rank) runs as the replay of one captured CUDA graph: the
+    forward, the ELBO, the gradient and the optimizer, with the same
+    kernels in the same order, dispatched by the card instead of the
+    host. The chunk copies each slice, its draws and the epoch into the
+    graph's static inputs and replays; draws not given are drawn from
     `generator` outside the graph by step_draws, with the step's `cfg`,
     as the eager steps draw them. The first chunk on a state (or at new
     shapes) runs its first step eagerly, on the stream the capture uses,
-    as the warm-up, captures the step and replays it for the other k - 1:
-    every chunk is k real steps. One captured step is kept, keyed by the
-    state's tensors and the chunk's kind, shapes and dtypes; a chunk with
-    another key captures anew. On the CPU, under a mesh and at k = 1 the
-    steps run eagerly. Counters
+    as the warm-up, captures the step and replays it for the rest: every
+    chunk is n real steps. One captured step is kept, keyed by the
+    state's tensors and one step's kind, shapes and dtypes, so chunks of
+    every length replay it; a step with another key captures anew. On
+    the CPU and under a mesh the steps run eagerly. Counters
     (utils/profiling): "train.graph_captures", "train.graph_replays",
     "train.eager_steps"; spans inside the step are recorded at its
     capture, and each replay is a "train.graph_replay" span.
@@ -476,13 +479,13 @@ def make_multi_steps(sup_step, ss_step, k: int):
     captured: Dict[str, Any] = {}   # the one captured step's record
 
     def _graphable(step, state) -> bool:
-        return (k > 1 and tree_leaves(state.params)[0].is_cuda
+        return (tree_leaves(state.params)[0].is_cuda
                 and getattr(step, "mesh", None) is None)
 
-    def _eager(step, state, stacked, draws, extra, generator):
-        PR.count("train.eager_steps", k)
+    def _eager(step, state, stacked, n, draws, extra, generator):
+        PR.count("train.eager_steps", n)
         stats = []
-        for i in range(k):
+        for i in range(n):
             kw = {name: v[i] for name, v in draws.items() if v is not None}
             state, s = step(state, tree_map(lambda x: x[i], stacked),
                             *extra, generator=generator, **kw)
@@ -490,8 +493,9 @@ def make_multi_steps(sup_step, ss_step, k: int):
         return state, {key: torch.stack([s[key] for s in stats])
                        for key in stats[0]}
 
-    def _chunk_draws(kind, step, state, stacked, draws, extra, generator):
-        """Every draw of the chunk on the params' device, (k, ...) each,
+    def _chunk_draws(kind, step, state, stacked, n, draws, extra,
+                     generator):
+        """Every draw of the chunk on the params' device, (n, ...) each,
         those not given drawn step by step as the eager steps draw."""
         leaf = tree_leaves(state.params)[0]
         missing = [name for name, v in draws.items() if v is None]
@@ -499,7 +503,7 @@ def make_multi_steps(sup_step, ss_step, k: int):
             made = [step_draws(step.cfg, kind,
                                tree_map(lambda x: x[i], stacked), missing,
                                generator, leaf, *extra[1:])
-                    for i in range(k)]
+                    for i in range(n)]
             draws = {**draws, **{name: torch.stack([m[name] for m in made])
                                  for name in missing}}
         return {name: torch.as_tensor(v).to(leaf.device)
@@ -554,10 +558,10 @@ def make_multi_steps(sup_step, ss_step, k: int):
             dst.copy_(draws[name][i])
         static["epoch"].fill_(float(epoch))
 
-    def _graphed(kind, step, state, stacked, draws, extra, generator):
-        draws = _chunk_draws(kind, step, state, stacked, draws, extra,
+    def _graphed(kind, step, state, stacked, n, draws, extra, generator):
+        draws = _chunk_draws(kind, step, state, stacked, n, draws, extra,
                              generator)
-        key = (kind, _signature(stacked), _signature(draws),
+        key = (kind, _step_signature(stacked), _step_signature(draws),
                tuple(x.data_ptr() for x in tree_leaves(state[:2])))
         rec, cols = captured.get("step"), []
         if rec is None or rec["key"] != key:
@@ -568,25 +572,26 @@ def make_multi_steps(sup_step, ss_step, k: int):
             rec["key"] = key
             captured["step"] = rec
             cols.append(first)
-        for i in range(len(cols), k):
+        for i in range(len(cols), n):
             _load(rec, stacked, draws, extra[0], i)
             with PR.span("train.graph_replay"):
                 rec["graph"].replay()
             PR.count("train.graph_replays")
             cols.append(rec["stats"].clone())
         rows = torch.stack(cols, dim=1).unbind(0)
-        return (TrainState(state.params, state.opt_state, state.step + k),
+        return (TrainState(state.params, state.opt_state, state.step + n),
                 {key: row.to(dtype) for key, dtype, row in
                  zip(rec["keys"], rec["dtypes"], rows)})
 
     def _run(kind, step, state, stacked, draws, *extra, generator=None):
         n = tree_leaves(stacked)[0].shape[0]
-        if n != k:
-            raise ValueError(f"a chunk of {n} batches for k = {k}")
+        if not 1 <= n <= k:
+            raise ValueError(f"a chunk of {n} batches: a chunk holds 1 to "
+                             f"k = {k}")
         if _graphable(step, state):
-            return _graphed(kind, step, state, stacked, draws, extra,
+            return _graphed(kind, step, state, stacked, n, draws, extra,
                             generator)
-        return _eager(step, state, stacked, draws, extra, generator)
+        return _eager(step, state, stacked, n, draws, extra, generator)
 
     def multi_sup(state, stacked, epoch, eps=None, generator=None):
         return _run("sup", sup_step, state, stacked, {"eps": eps}, epoch,

@@ -3,9 +3,10 @@ validation, and the best-train, epoch, best-val and final checkpoints
 (port of humor_tpu/train/trainer.py).
 
 The steps of an epoch run in chunks of k (`steps_per_dispatch`,
-train/step.make_multi_steps): a chunk's stats stay on the device and are
-read once, averaged over its k steps; the epoch's remainder runs as
-single steps. The items of an epoch (whole chunks at k > 1) are built in a
+train/step.make_multi_steps), and each batch of the epoch's remainder as
+a chunk of 1: a chunk's stats stay on the device and are read once,
+averaged over its steps. On one card every step, at every k, is the
+replay of one captured CUDA graph. The chunks of an epoch are built in a
 daemon thread (`_prefetch`) ahead of the steps, so the host gather
 overlaps the card's work.
 
@@ -53,24 +54,25 @@ class TrainRunConfig:
     load_optim: bool = True
     # HuMoR-Qual: SMPL-forward joints fed back during scheduled sampling
     use_smpl_joint_inputs: bool = False
-    # k > 1: k steps a chunk (step.make_multi_steps), the chunk's stats
-    # read once and entered in the tracker as one update of weight k; 0:
+    # k steps a chunk (step.make_multi_steps), the chunk's stats read once
+    # and entered in the tracker as one update of weight k; 0:
     # _AUTO_STEPS_PER_DISPATCH
     steps_per_dispatch: int = 0
-    # items built ahead of the steps by a daemon thread (at k > 1 an item
-    # is a whole chunk, so depth * k batches); 0: no thread
+    # chunks built ahead of the steps by a daemon thread (depth * k
+    # batches); 0: no thread
     prefetch_depth: int = 2
     # data-parallel over the torch.distributed process group when one is
     # initialised, one device otherwise
     use_mesh: bool = True
 
 
-# k when steps_per_dispatch is 0. The JAX package takes 8, the knee it
-# measured on its TPU. Here k changes how often the stats are read, not
-# the work: the supervised step at 200 x 10 took 193.3-195.0 ms at k = 1,
-# 189.0-194.5 at k = 4 and 191.5-193.0 at k = 8 (chip_smoke.py phase 12,
-# two turns each, NVIDIA H100 80GB HBM3 at 700 W), so k = 8 is not slower
-# than k = 1 and auto keeps 8, which reads the stats an eighth as often.
+# k when steps_per_dispatch is 0, the JAX package's knee on its TPU. On
+# one card every step replays the captured graph whatever k is, so k sets
+# how often the host reads the stats: once a chunk, a sync that leaves
+# the card idle until the next chunk is enqueued. The supervised step at
+# 200 x 10 took 25.17-25.24 ms at k = 1, 23.92-24.10 at k = 4 and
+# 23.83-23.91 at k = 8 (chip_smoke.py phase 12, two turns each, NVIDIA
+# H100 80GB HBM3 at 700 W), so auto keeps 8.
 _AUTO_STEPS_PER_DISPATCH = 8
 
 
@@ -130,12 +132,14 @@ class Trainer:
         posterior noise and the curriculum's draws come from a generator
         on the device seeded `seed + 1`.
 
-        train_chunks(epoch, k), when given, is the k-step source: it
-        yields (payload, n), a stacked (k, B, ...) chunk with n == k (the
-        device store's one gather, train/cli.make_batch_fns) or a single
-        batch with n == 1 (the remainder); its values equal k items of
-        train_batches stacked. Without it the trainer stacks
-        train_batches' items itself.
+        train_chunks(epoch, k), when given, is the chunk source: it
+        yields (chunk, n), n batches stacked along a leading axis: n == k
+        (the device store's one gather, train/cli.make_batch_fns), then
+        each batch of the remainder with n == 1; its values equal
+        train_batches' items stacked. Without it the trainer stacks
+        train_batches' items itself. Every chunk runs through
+        train/step.make_multi_steps: on one card as replays of one
+        captured CUDA graph, on the CPU and under a mesh eagerly.
 
         With run_cfg.use_mesh and an initialised process group the
         training is data-parallel over it (parallel.mesh.make_mesh): each
@@ -182,10 +186,8 @@ class Trainer:
             use_smpl_joint_inputs=run_cfg.use_smpl_joint_inputs,
             mesh=self.mesh)
         self.k = run_cfg.steps_per_dispatch or _AUTO_STEPS_PER_DISPATCH
-        self.multi_sup = self.multi_ss = None
-        if self.k > 1:
-            self.multi_sup, self.multi_ss = TS.make_multi_steps(
-                self.sup_step, self.ss_step, self.k)
+        self.multi_sup, self.multi_ss = TS.make_multi_steps(
+            self.sup_step, self.ss_step, self.k)
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed + 1)
         n_params = sum(p.numel() for p in TS.tree_leaves(self.state.params))
@@ -212,21 +214,18 @@ class Trainer:
             Logger.log(msg)
 
     def _chunk_source(self, epoch: int, k: int):
-        """(payload, n) items: stacked (k, B, ...) chunks with n == k,
-        then the remainder's single batches with n == 1."""
-        if k > 1 and self.train_chunks is not None:
+        """(chunk, n) items: stacked (k, B, ...) chunks with n == k, then
+        each batch of the remainder stacked alone, n == 1."""
+        if self.train_chunks is not None:
             yield from self.train_chunks(epoch, k)
             return
         it = iter(self.train_batches(epoch))
-        while True:
-            chunk = list(itertools.islice(it, k))
-            if not chunk:
-                return
-            if len(chunk) == k and k > 1:
+        while chunk := list(itertools.islice(it, k)):
+            if len(chunk) == k:
                 yield TS.stack_batches(chunk), k
             else:
                 for b in chunk:
-                    yield b, 1
+                    yield TS.stack_batches([b]), 1
 
     def _run_epoch(self, epoch: int, tracker: StatTracker) -> float:
         rc = self.run_cfg
@@ -234,25 +233,18 @@ class Trainer:
                                       rc.sched_samp_end)
         sup = use_gt_p >= 1.0
         extra = () if sup else (use_gt_p,)
-        k = self.k
-        src = self._chunk_source(epoch, k)
+        multi = self.multi_sup if sup else self.multi_ss
+        src = self._chunk_source(epoch, self.k)
         if rc.prefetch_depth > 0:
             src = _prefetch(src, rc.prefetch_depth)
         i = chunks = 0
         for payload, n in src:
-            if n == k and k > 1:
-                multi = self.multi_sup if sup else self.multi_ss
-                self.state, stats_k = multi(self.state, payload, epoch,
-                                            *extra, generator=self.generator)
-                # one read of the chunk's means, of weight k: every step
-                # of the chunk weighs in the epoch's averages as a single
-                # step does
-                tracker.update(stats_k, n=k, global_step=self.state.step)
-            else:
-                step = self.sup_step if sup else self.ss_step
-                self.state, stats = step(self.state, payload, epoch, *extra,
-                                         generator=self.generator)
-                tracker.update(stats, global_step=self.state.step)
+            self.state, stats = multi(self.state, payload, epoch, *extra,
+                                      generator=self.generator)
+            # one read of the chunk's means, of weight n: every step of
+            # the chunk weighs in the epoch's averages as a single step
+            # does
+            tracker.update(stats, n=n, global_step=self.state.step)
             i += n
             chunks += 1
             if chunks % rc.print_every == 0:

@@ -30,7 +30,7 @@ from humor_torch.models import gmm as tgmm
 from humor_torch.models import humor as TH
 from humor_torch.models import vposer as tvp
 from humor_torch.ops import mlp as tmlp
-from humor_torch.ops import rollout_step as TRS
+from humor_torch.ops import rollout_kernel as RK
 from humor_torch.ops import transforms as TT
 
 torch.set_num_threads(2)
@@ -297,7 +297,10 @@ def test_canonical_frame_and_transform_match(invert):
 
 
 def test_rollout_step_matches(humor_params):
-    """One flat-carry transition, 3e-4 (the per-head precedent)."""
+    """One flat-carry transition: the plain step of the rollout kernels'
+    layout (ops/rollout_kernel.step_forward, what the CPU runs), the
+    state, g_rot and g_trans packed into its carry, against JAX's
+    rollout_step; 3e-4 (the per-head precedent)."""
     jp, tp = humor_params
     rng = np.random.RandomState(12)
     st = _state(rng, 3)
@@ -310,19 +313,25 @@ def test_rollout_step_matches(humor_params):
         CFG_J, jp, JRS.StepCarry({k: jnp.asarray(v) for k, v in st.items()},
                                  jnp.asarray(g_rot), jnp.asarray(g_trans)),
         jnp.asarray(z), jnp.asarray(t2j))
-    tc, to = TRS.rollout_step(
-        CFG_T, tp, TRS.StepCarry({k: _t(v) for k, v in st.items()},
-                                 _t(g_rot), _t(g_trans)), _t(z), _t(t2j))
+    carry = torch.cat([_t(st[k]) for k in RK.IN_NAMES]
+                      + [_t(g_rot).reshape(3, 9), _t(g_trans)], dim=-1)
+    out, nxt = RK.step_forward(RK.RolloutWeights(tp, "cpu"), carry, _t(z),
+                               _t(t2j))
+    world = {k: v[:, 0] for k, v in RK.world_to_dict(out[None]).items()}
     for k in jo.world:
-        np.testing.assert_allclose(to.world[k].numpy(), _np(jo.world[k]),
-                                   atol=3e-4, err_msg=k)
+        np.testing.assert_allclose(
+            world[k].numpy(), _np(jo.world[k]).reshape(3, -1), atol=3e-4,
+            err_msg=k)
+    local = RK.world_to_dict(nxt[None])
     for k in jc.local:
-        np.testing.assert_allclose(tc.local[k].numpy(), _np(jc.local[k]),
-                                   atol=3e-4, err_msg=k)
-    np.testing.assert_allclose(tc.g_rot.numpy(), _np(jc.g_rot), atol=1e-5)
-    np.testing.assert_allclose(tc.g_trans.numpy(), _np(jc.g_trans),
+        np.testing.assert_allclose(
+            local[k][:, 0].numpy(), _np(jc.local[k]).reshape(3, -1),
+            atol=3e-4, err_msg=k)
+    np.testing.assert_allclose(nxt[:, 339:348].numpy(),
+                               _np(jc.g_rot).reshape(3, 9), atol=1e-5)
+    np.testing.assert_allclose(nxt[:, 348:351].numpy(), _np(jc.g_trans),
                                atol=3e-4)
-    np.testing.assert_allclose(to.prior_var.numpy(), _np(jo.prior_var),
+    np.testing.assert_allclose(out[:, 396:444].numpy(), _np(jo.prior_var),
                                rtol=3e-4)
 
 

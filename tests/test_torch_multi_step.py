@@ -226,12 +226,15 @@ def test_stack_batches_stays_on_the_device():
     assert torch.equal(s["b"][0], torch.stack([d["b"][0] for d in dev]))
 
 
-def test_multi_step_rejects_a_chunk_of_the_wrong_size(setup):
+@pytest.mark.parametrize("n", [K, 0], ids=["longer", "empty"])
+def test_multi_step_rejects_a_chunk_of_the_wrong_size(setup, n):
+    """A chunk holds 1 to k batches: K batches for k = K - 1, and none."""
     *_, params, _, batches = setup
     opt, sup, ss = _port_steps()
-    multi_sup, _ = TS.make_multi_steps(sup, ss, K + 1)
-    with pytest.raises(ValueError, match="chunk of 3"):
-        multi_sup(_fresh(opt, params), TS.stack_batches(batches), EPOCH)
+    multi_sup, _ = TS.make_multi_steps(sup, ss, K - 1)
+    stacked = TS.tree_map(lambda x: x[:n], TS.stack_batches(batches))
+    with pytest.raises(ValueError, match=f"chunk of {n} "):
+        multi_sup(_fresh(opt, params), stacked, EPOCH)
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +327,7 @@ def _assert_tree_equal(a, b):
 
 def test_train_chunk_fn_matches_stacked_batch_fn(dataset):
     """The CLI's chunk source equals stack_batches of its batch source:
-    full chunks and the remainder's single batches."""
+    full chunks, and each remainder batch stacked alone."""
     from humor_torch.train.cli import make_batch_fns
 
     batches, chunks = make_batch_fns(dataset, _cli_cfg(1), 11, 5, 3, "cpu")
@@ -333,8 +336,7 @@ def test_train_chunk_fn_matches_stacked_batch_fn(dataset):
     ref = list(batches(0))
     assert [n for _, n in got] == [2, 2, 1]
     for ci, (payload, n) in enumerate(got):
-        want = (TS.stack_batches(ref[2 * ci:2 * ci + 2]) if n == 2
-                else ref[4])
+        want = TS.stack_batches(ref[2 * ci:2 * ci + n])
         _assert_tree_equal(payload, want)
 
 

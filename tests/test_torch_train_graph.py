@@ -12,18 +12,27 @@
   * the step's draws (train/step.step_draws, which a graphed chunk
     also draws by, outside the graph) against the reference's steps,
     which draw inside the model, from equal generators: bit for bit;
-  * on the CPU the chunk runs eagerly and counts its steps;
+  * on the CPU the chunk runs eagerly and counts its steps, a full
+    chunk and one shorter than k;
+  * the Trainer at k = 1, and with an epoch's remainder at k = 2, runs
+    every step through make_multi_steps and logs the stats rows of single
+    steps read a chunk at a time;
   * marked `cuda`: a graphed chunk against k calls of the single step
     on the card, bit for bit, over two chunks (the first captures), with
     the draws drawn from a generator and injected, for the supervised,
     the scheduled-sampling and the HuMoR-Qual step, with the counters,
-    and no host sync in a chunk of replays.
+    and no host sync in a chunk of replays; chunks shorter than k replay
+    the same graph; a k = 1 Trainer epoch on the card equals single
+    eager steps with one capture.
 
 CPU, small sizes, no JAX, a few seconds. The card's tests, with no
 conftest (it sets up JAX):
 
     python -m pytest --noconftest tests/test_torch_train_graph.py -q
 """
+
+import json
+import os
 
 import pytest
 import torch
@@ -34,7 +43,9 @@ from humor_torch.data.windows import window_to_pairs
 from humor_torch.losses.elbo import LossConfig
 from humor_torch.models import humor as H
 from humor_torch.train import step as TS
+from humor_torch.train.trainer import Trainer, TrainRunConfig
 from humor_torch.utils import profiling as PR
+from humor_torch.utils.stats import to_host
 from portbench import weights as W
 from portbench.reference import humor as RH
 from portbench.reference import step as RS
@@ -179,18 +190,87 @@ def test_step_draws_as_the_reference_draws(kind):
     assert all(torch.equal(a, b) for a, b in zip(leaves, ref_leaves))
 
 
-def test_cpu_chunk_runs_eagerly():
+@pytest.mark.parametrize("n", [K, 1], ids=["full", "short"])
+def test_cpu_chunk_runs_eagerly(n):
     opt, bodies, sup, ss = _steps("cpu", smpl=False)
     multi_ss = TS.make_multi_steps(sup, ss, K)[1]
     state = TS.make_train_state(_weights(), opt)
+    stacked = TS.tree_map(lambda x: x[:n], _chunk(bodies, 0, "cpu"))
     with PR.recording() as rec:
-        state, stats = multi_ss(state, _chunk(bodies, 0, "cpu"), EPOCH, 0.0,
+        state, stats = multi_ss(state, stacked, EPOCH, 0.0,
                                 generator=torch.Generator().manual_seed(6))
-    assert rec.counters["train.eager_steps"] == K
+    assert rec.counters["train.eager_steps"] == n
     assert "train.graph_captures" not in rec.counters
     assert "train.graph_replays" not in rec.counters
-    assert rec.by_name()["train.step"]["count"] == K
-    assert stats["total_loss"].shape == (K,) and state.step == K
+    assert rec.by_name()["train.step"]["count"] == n
+    assert stats["total_loss"].shape == (n,) and state.step == n
+
+
+STEPS = 3     # an epoch's steps in the trainer tests
+
+
+def _trainer_and_singles(tmp_path, device, k, epochs, samp=(1, 3)):
+    """A Trainer at k over `epochs` epochs of STEPS batches (supervised
+    before samp[0], scheduled sampling after it), its single steps
+    replaced by ones that raise, against the same steps run one at a
+    time from the same start and generator, their stats read a chunk of
+    k (and each remainder step) at a time. -> ((trainer rows, leaves,
+    counters), (single-step rows, leaves))."""
+    bodies = _bodies(device)
+    data = {e: [_batch(100 * e + i, bodies, device) for i in range(STEPS)]
+            for e in range(epochs)}
+    rc = TrainRunConfig(out_dir=str(tmp_path), epochs=epochs,
+                        sched_samp_start=samp[0], sched_samp_end=samp[1],
+                        save_every=100, steps_per_dispatch=k,
+                        prefetch_depth=0, use_mesh=False)
+    tr = Trainer(H.HumorConfig(), LossConfig(), rc,
+                 train_batches=lambda e: iter(data[e]),
+                 steps_per_epoch=STEPS, seed=3, device=device)
+    sup, ss = tr.sup_step, tr.ss_step
+
+    def single(*a, **kw):
+        raise AssertionError("the trainer called a single train step")
+
+    tr.sup_step = tr.ss_step = single
+    with PR.recording() as rec:
+        tr.fit()
+    with open(os.path.join(str(tmp_path), "stats.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+
+    state = TS.init_train_state(H.HumorConfig(), tr.opt,
+                                torch.Generator().manual_seed(3), device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    ref = []
+    full = STEPS - STEPS % k
+    for e in range(epochs):
+        gt_p = TS.sched_samp_prob(e, *samp)
+        step, extra = (sup, ()) if gt_p >= 1.0 else (ss, (gt_p,))
+        for group in ([data[e][i:i + k] for i in range(0, full, k)]
+                      + [[b] for b in data[e][full:]]):
+            stats = []
+            for b in group:
+                state, s = step(state, b, e, *extra, generator=gen)
+                stats.append(s)
+            ref.append({**to_host({key: torch.stack([s[key] for s in stats])
+                                   for key in stats[0]}),
+                        "step": state.step})
+    return ((rows, _state_leaves(tr.state), dict(rec.counters)),
+            (ref, _state_leaves(state)))
+
+
+@pytest.mark.parametrize("k", [1, 2], ids=["k1", "remainder"])
+def test_trainer_runs_every_step_through_the_chunk(tmp_path, k):
+    """k = 1: three chunks of 1 an epoch; k = 2: a chunk of 2 and the
+    remainder's chunk of 1. Over a supervised and a scheduled-sampling
+    epoch on the CPU every step is eager inside make_multi_steps, and the
+    log's rows and the params equal single steps' bit for bit."""
+    (rows, leaves, counters), (ref, ref_leaves) = _trainer_and_singles(
+        tmp_path, "cpu", k, epochs=2)
+    assert counters["train.eager_steps"] == 2 * STEPS
+    assert rows == ref
+    assert [r["step"] for r in rows] == (
+        [1, 2, 3, 4, 5, 6] if k == 1 else [2, 3, 5, 6])
+    assert all(torch.equal(a, b) for a, b in zip(leaves, ref_leaves))
 
 
 @pytest.fixture
@@ -203,11 +283,11 @@ def card():
 
 
 def _singles(step):
-    """k calls of the single step over a chunk, with the chunk's draws
-    sliced per step: the chunk it should equal."""
+    """A call of the single step a batch of a chunk, with the chunk's
+    draws sliced per step: the chunk it should equal."""
     def run(state, stacked, *extra, generator=None, **draws):
         stats = []
-        for i in range(K):
+        for i in range(TS.tree_leaves(stacked)[0].shape[0]):
             state, s = step(state, TS.tree_map(lambda x: x[i], stacked),
                             *extra, generator=generator,
                             **{n: v[i] for n, v in draws.items()})
@@ -265,3 +345,45 @@ def test_graphed_chunk_equals_single_steps(card, kind, inject):
     assert second.get("train.graph_captures", 0) == 0
     assert second.get("train.eager_steps", 0) == 0
     assert second["train.graph_replays"] == K
+
+
+@pytest.mark.cuda
+def test_short_chunks_replay_one_graph(card):
+    """Chunks of K - 1 and then 1 batch for k = K: the first captures,
+    the second replays the same graph; both equal the single steps bit
+    for bit."""
+    opt, bodies, sup, ss = _steps(card)
+    graphed = TS.make_multi_steps(sup, ss, K)[0]
+    chunks = [TS.tree_map(lambda x, n=n: x[:n], _chunk(bodies, 10 * c, card))
+              for c, n in enumerate((K - 1, 1))]
+    runs = []
+    for multi in (_singles(sup), graphed):
+        state = TS.make_train_state(_weights(card), opt)
+        gen = torch.Generator(device=card).manual_seed(8)
+        out = []
+        with PR.recording() as rec:
+            for stacked in chunks:
+                state, stats = multi(state, stacked, EPOCH, generator=gen)
+                out.append({k: v.clone() for k, v in stats.items()})
+        runs.append((out, _state_leaves(state), dict(rec.counters)))
+    (ref, ref_leaves, _), (got, leaves, counters) = runs
+    for stats, ref_stats in zip(got, ref):
+        assert list(stats) == list(ref_stats)
+        assert all(torch.equal(stats[k], ref_stats[k]) for k in stats)
+    assert all(torch.equal(a, b) for a, b in zip(leaves, ref_leaves))
+    assert (counters["train.graph_captures"], counters["train.eager_steps"],
+            counters["train.graph_replays"]) == (1, 1, K - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sup", "ss"])
+def test_k1_trainer_epoch_equals_single_steps(card, tmp_path, kind):
+    """A k = 1 Trainer epoch on the card, a supervised one or one fully
+    scheduled-sampled: one capture, the other steps replays, and the log's
+    rows and the params bit for bit those of single eager steps."""
+    (rows, leaves, counters), (ref, ref_leaves) = _trainer_and_singles(
+        tmp_path, card, 1, epochs=1, samp=(1, 3) if kind == "sup" else (0, 0))
+    assert (counters["train.graph_captures"], counters["train.eager_steps"],
+            counters["train.graph_replays"]) == (1, 1, STEPS - 1)
+    assert rows == ref
+    assert all(torch.equal(a, b) for a, b in zip(leaves, ref_leaves))

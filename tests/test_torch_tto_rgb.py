@@ -26,6 +26,8 @@ from humor_tpu.fitting import geometry as JG
 from humor_tpu.fitting import optimizer as JO
 from humor_tpu.models import vposer as jvp
 
+from humor_torch import device as D
+from humor_torch.body_model import constants as C
 from humor_torch.fitting import energies as TE
 from humor_torch.fitting import optimizer as TO
 
@@ -433,3 +435,34 @@ def test_stage3_objective_matches(models, observed, prev):
                              optim_floor=True)
     obs_t = _th(obs)
     _compare(jval, jgrad, lambda vv: fn(vv, obs_t), _th(v), tuple(v))
+
+
+def test_stage3_indices_stay_on_the_device(models, observed):
+    """One stage-3 evaluation on the CPU (value and gradient) leaves its
+    constant index tensors in device._INDEX: the OpenPose map, the
+    skeleton's parents, the contact joints and the skinned vertices; a
+    second evaluation makes none."""
+    _, tm = models
+    fm = TO.prepare_models(tm, "cpu")
+    v = TO.stage3_setup(CFG_T, fm, _th(_stage12_vars(4)))
+    fn = TO.stage3_objective(fm, CFG_T.stage_weights[2], T, T / 5.0,
+                             CFG_T.energy, optim_floor=True)
+    obs = _th(_with_prev(observed, True))
+
+    def evaluate():
+        leaves = {k: x.detach().clone().requires_grad_(True)
+                  for k, x in v.items()}
+        torch.autograd.grad(fn(leaves, obs).sum(), list(leaves.values()))
+
+    evaluate()
+    skinned = np.concatenate([TO._keypt_ids(fm.models.body),
+                              fm.models.body.vtx_joint_ids])
+    for name, ids in (("smpl2op_map", SMPL2OP),
+                      ("parents", C.SMPL_PARENTS[1:]),
+                      ("contacts", C.CONTACT_INDS), ("skinned", skinned)):
+        key = (np.asarray(ids, np.int64).tobytes(), torch.device("cpu"))
+        assert key in D._INDEX, name
+    kept = dict(D._INDEX)
+    evaluate()
+    assert D._INDEX.keys() == kept.keys()
+    assert all(D._INDEX[key] is idx for key, idx in kept.items())
