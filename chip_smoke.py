@@ -19,7 +19,8 @@ Phases, each of which fails the run (non-zero exit) on error:
      the unscaled weights. Both rollout kernels also at every M in EDGE_M
      x T in EDGE_T and at the CLI's zoom probes' M=2, T=59 (damped), each
      within 1e-4, twice on the same T=59 inputs (bit-identical),
-     and timed at M=128 with their grids and barriers a step. The
+     and timed at M=16 and M=128 with their grids, grid barriers a call
+     and ready-waits a call (with the ones that spun). The
      nearest-neighbour kernel at one
      line-search candidate's slice of the PROX fit (120 clouds x 4096
      queries x 6890 points, 10% of the queries at 1e6 as the energy puts
@@ -548,6 +549,27 @@ def time_fwd(weights, M, steps):
 
     carry0, z, t2j, _ = rollout_inputs(M, steps, seed=M)
     return cuda_ms(lambda: RK.rollout_forward(weights, carry0, z, t2j), 5)
+
+
+def kernel_waits(weights, M, steps):
+    """Each rollout kernel's ready-waits a call at (M, steps) and the ones
+    that spun, from one recorded call each: {"fwd": {"waits", "stalled"},
+    "bwd": ...}."""
+    from humor_torch.ops import rollout_kernel as RK
+    from humor_torch.utils import profiling
+
+    carry0, z, t2j, dout = rollout_inputs(M, steps, seed=M)
+    _, saved = RK.rollout_forward(weights, carry0, z, t2j)
+    found = {}
+    for name, call in (
+            ("fwd", lambda: RK.rollout_forward(weights, carry0, z, t2j)),
+            ("bwd", lambda: RK.rollout_backward(weights, saved, z, t2j,
+                                                dout))):
+        with profiling.recording() as rec:
+            call()
+        found[name] = {"waits": rec.counters["rollout.waits"],
+                       "stalled": rec.counters["rollout.waits_stalled"]}
+    return found
 
 
 def weight_bytes(weights):
@@ -4014,14 +4036,18 @@ def main(argv=None):
                                           dtype=torch.float64))
     fwd_edge_err = check_fwd_edges(shapes)
     bwd_edge_err = check_bwd_edges(shapes)
-    fwd_design = RK.forward_design()
+    waits_16 = kernel_waits(damped_weights, M_STAGE3, T_ROLL)
+    fwd_design = {**RK.forward_design(), **waits_16["fwd"]}
     fwd_ms_128 = time_fwd(damped_weights, M_MAX, T_ROLL)
-    print("[timing fwd] " + json.dumps({**fwd_design, "M": M_MAX,
-                                        "T": T_ROLL, "ms": fwd_ms_128}))
-    bwd_design = RK.backward_design()
+    bwd_design = {**RK.backward_design(), **waits_16["bwd"]}
     bwd_ms_128 = time_bwd(damped_weights, M_MAX, T_ROLL)
-    print("[timing bwd] " + json.dumps({**bwd_design, "M": M_MAX,
-                                        "T": T_ROLL, "ms": bwd_ms_128}))
+    waits_128 = kernel_waits(damped_weights, M_MAX, T_ROLL)
+    print("[timing fwd] " + json.dumps({
+        **fwd_design, "M": M_MAX, "T": T_ROLL, "ms": fwd_ms_128,
+        "ms_m16": full["fwd_ms"], "waits_m128": waits_128["fwd"]}))
+    print("[timing bwd] " + json.dumps({
+        **bwd_design, "M": M_MAX, "T": T_ROLL, "ms": bwd_ms_128,
+        "ms_m16": full["bwd_ms"], "waits_m128": waits_128["bwd"]}))
     del damped_weights
     nn_err, nn_rec = check_nn()
     skin_err, skin_rec = check_skin()
@@ -4045,7 +4071,8 @@ def main(argv=None):
          "max_abs_err": full["fwd_err"], "ms": full["fwd_ms"],
          "plain_ms": full["fwd_plain_ms"], "bound_ms": b_fwd,
          "bound_by": by_fwd, "library_ms": None,
-         "barriers_per_step": fwd_design["barriers_per_step"],
+         "barriers_per_call": fwd_design["barriers_per_call"],
+         "waits": fwd_design["waits"], "waits_stalled": fwd_design["stalled"],
          "grid_blocks": fwd_design["grid_blocks"],
          "ms_m128": fwd_ms_128,
          "bound_ms_m128": fwd_bound(weights, M_MAX, T_ROLL)[0],
@@ -4058,7 +4085,8 @@ def main(argv=None):
          "max_abs_err": full["bwd_err"], "ms": full["bwd_ms"],
          "plain_ms": full["bwd_plain_ms"], "bound_ms": b_bwd,
          "bound_by": by_bwd, "library_ms": None,
-         "barriers_per_step": bwd_design["barriers_per_step"],
+         "barriers_per_call": bwd_design["barriers_per_call"],
+         "waits": bwd_design["waits"], "waits_stalled": bwd_design["stalled"],
          "grid_blocks": bwd_design["grid_blocks"],
          "ms_m128": bwd_ms_128,
          "bound_ms_m128": bwd_bound(weights, M_MAX, T_ROLL)[0],

@@ -33,16 +33,22 @@
 //   (B_k runs prior layer 4-k and decoder layer 3-k transposed). The
 //   recompute of step t needs only its saved carry, so it runs beside the
 //   backward of step t + 1: iteration t is F_k(t) | B_k(t + 1) for k =
-//   0..4, then TL(t). Barriers: 6 a step, 6 T + 6 a call (one after the
-//   weights are loaded). h is kept in two copies, by step parity.
-// The arrival counters and dt2j are zeroed in the kernel and dz is written
-// before it is added to, so the C entry enqueues nothing but the launch.
+//   0..4, then TL(t). No grid barrier between phases
+//   (rollout_persistent.cuh's ready counters): two a call, after the
+//   weights are loaded and before d(carry0) is summed. h is kept in two copies, by step parity. The tail
+//   of step t waits for both heads of step t and the layer-0 cotangents
+//   of step t + 1 in its row tile; a head's transposed products for the
+//   tail rows of their step.
+// The counters and dt2j are zeroed in the kernel and dz is written before
+// it is added to, so the C entry enqueues nothing but the launch.
 //
-// Why it is not nearer its bound: 6 T + 6 barriers at ~1.1 us each (0.40
-// ms at T=59, scripts/grid_barrier_study.py); a phase waits for its
-// slowest block's products, then for the L2 round trips of its finishes
-// (the partials, then the finished tile); and the tail's lane-0 part
-// (root, heading, global transform) runs serially, one warp a row.
+// Why it is not nearer its bound: a step is a chain of latencies. At M=16
+// a block waits for its inputs ~34 of the ~76 us a step
+// (scripts/rollout_bwd_study.py): each layer costs its slowest producer's
+// units, a signal (a fence, an L2 round trip) to the finisher, the
+// finish's L2 reads (the partials, then the finished tile) and a signal to
+// the next layer's blocks; and the tail's lane-0 part (root, heading,
+// global transform) runs serially, one warp a row.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o librollout_bwd.so rollout_bwd.cu
@@ -293,7 +299,7 @@ __device__ void tail_vjp_row(int lane, const float* c, const float* t2j,
 }
 
 constexpr int STAGES = 5;
-constexpr int BARRIERS_PER_STEP = STAGES + 1;
+constexpr int BARRIERS_PER_CALL = 2;
 static_assert(RAW + PHEAD + 2 * CW + OUT_W <= RING_FLOATS,
               "tail buffers fit");
 
@@ -309,8 +315,8 @@ struct Params {
   float* dcur[2];      // tail parts of the carry cotangent, by step parity
   float* ddraw;        // M x RAW: the decoder head's backward input
   float* dp;           // M x PHEAD: the prior head's
-  int* counters;
-  int n_counters, n_tiles, M, T;
+  Counters cnt;
+  int n_tiles, M, T;
 };
 
 // Finish rows row0..row0 + RT - 1 of backward output slice s of layer l for
@@ -404,15 +410,23 @@ __device__ __forceinline__ float carry_cot(const Layer* Ls, const float* dprev,
   return v;
 }
 
-// One block a row: its threads gather the row's heads, carry cotangent,
-// entry carry and output cotangent into shared memory (every load issued
-// before the first store), then its first warp runs the tail VJP from
-// there.
-__device__ void tail_phase(const Params& P, const Layer* Ls, int t,
+// One block a row (always the same block's, so the tail part of the
+// carry cotangent and dt2j it reads are its own): once both heads of step
+// t are recomputed and the layer-0 cotangents of step t + 1 (both MLPs,
+// and decoder layer 0's z columns, the last reader of the decoder head's
+// cotangent) are finished in the row's row tile, its threads gather the
+// row's heads, carry cotangent, entry carry and output cotangent into
+// shared memory (every load issued before the first store), its first
+// warp runs the tail VJP from there, and the row is published.
+__device__ void tail_phase(const Params& P, BlockState& bs, int t,
                            float* smem) {
   constexpr int N = RAW + PHEAD + 2 * CW + OUT_W;
   constexpr int PER = (N + BT - 1) / BT;
+  const Layer* Ls = bs.Ls;
   const int M = P.M;
+  const int u = P.T - t;    // the step's use of its counters
+  const int n8 = col_tiles(Ls[8]), n4 = col_tiles(Ls[4]);
+  const int n0 = slices(Ls[0]), n5 = slices(Ls[5]);
   float* sd = smem;               // decoder head
   float* sph = sd + RAW;          // prior head
   float* sdn = sph + PHEAD;       // the next carry's cotangent
@@ -421,6 +435,22 @@ __device__ void tail_phase(const Params& P, const Layer* Ls, int t,
   const float* dprev = P.dcur[(t + 1) & 1];
   float* dnew = P.dcur[t & 1];
   for (int row = blockIdx.x; row < M; row += gridDim.x) {
+    const int r = row / RT;
+    wait_all(bs, n8 + n4 + n0 + n5, [&](int j, const int** p) {
+      const int R = bs.R;
+      if (j < n8) {
+        *p = Ls[8].rdy_f + j * R + r;
+        return u;
+      }
+      j -= n8;
+      if (j < n4) {
+        *p = Ls[4].rdy_f + j * R + r;
+        return u;
+      }
+      j -= n4;
+      *p = j < n0 ? Ls[0].rdy_b + j * R + r : Ls[5].rdy_b + (j - n0) * R + r;
+      return u - 1;
+    });
     const float* carry = P.saved + ((size_t)t * M + row) * CW;
     const float* go = P.dout + ((size_t)t * M + row) * OUT_W;
     float v[PER];
@@ -451,7 +481,7 @@ __device__ void tail_phase(const Params& P, const Layer* Ls, int t,
       tail_vjp_row(threadIdx.x, sc, P.t2j + 3 * row, sd, sph, sgo, sdn,
                    dnew + (size_t)row * CW, P.ddraw + (size_t)row * RAW,
                    P.dp + (size_t)row * PHEAD, P.dt2j + 3 * row);
-    __syncthreads();
+    publish_tail_row(bs, row);
   }
 }
 
@@ -466,8 +496,9 @@ __global__ void __launch_bounds__(BT, 1)
   for (int i = blockIdx.x * BT + threadIdx.x; i < 3 * P.M;
        i += gridDim.x * BT)
     P.dt2j[i] = 0.f;
-  block_setup(P.L, P.n_tiles, P.counters, P.n_counters, bs, tiles);
-  grid.sync();
+  block_setup(P.L, P.n_tiles, P.cnt.base, P.cnt.n, P.cnt.tail, P.M, bs,
+              tiles);
+  grid.sync();   // counters and dt2j zeroed
   const Layer* Ls = bs.Ls;
   auto finish = [&](bool bwd, int l, int o, int step, int row0) {
     if (bwd)
@@ -476,34 +507,32 @@ __global__ void __launch_bounds__(BT, 1)
       finish_fwd(Ls, P.M, l, o, step, row0);
   };
   // iteration t: the recompute of step t beside the backward of step t + 1,
-  // then the tail of step t
+  // then the tail of step t. F_k: prior layer k, decoder layer k; B_k:
+  // prior layer 4 - k, decoder layer 3 - k; a step's counters are used for
+  // the (T - step)-th time.
   for (int t = P.T - 1; t >= -1; --t) {
     const int tb = t + 1;
     for (int k = 0; k < STAGES; ++k) {
-      // F_k: prior layer k, decoder layer k; B_k: prior layer 4 - k,
-      // decoder layer 3 - k; a step's counters are used for the
-      // (T - step)-th time
       if (threadIdx.x == 0) {
         int n = 0;
         if (t >= 0) {
-          bs.plan.set(n++, k, false, t, P.T - t);
-          if (k < 4) bs.plan.set(n++, 5 + k, false, t, P.T - t);
+          const int u = P.T - t, in = k == 0 ? 0 : u;
+          bs.plan.set(n++, k, false, t, u, in);
+          if (k < 4) bs.plan.set(n++, 5 + k, false, t, u, in);
         }
         if (tb < P.T) {
-          bs.plan.set(n++, 4 - k, true, tb, P.T - tb);
-          if (k < 4) bs.plan.set(n++, 8 - k, true, tb, P.T - tb);
+          const int u = P.T - tb;
+          bs.plan.set(n++, 4 - k, true, tb, u, u);
+          if (k < 4) bs.plan.set(n++, 8 - k, true, tb, u, u);
         }
         bs.plan.n = n;
       }
-      stage_products(bs, P.M, P.z, tiles, ring);
-      stage_finishes(bs, finish);
-      grid.sync();
+      run_phase(bs, P.z, tiles, ring, finish);
     }
-    if (t >= 0) {
-      tail_phase(P, Ls, t, ring);
-      grid.sync();
-    }
+    if (t >= 0) tail_phase(P, bs, t, ring);
   }
+  add_tally(bs, P.cnt.stats);
+  grid.sync();   // every cotangent of step 0 written
   for (int i = blockIdx.x * BT + threadIdx.x; i < P.M * CW;
        i += gridDim.x * BT)
     P.dcarry0[i] = carry_cot(Ls, P.dcur[0], i / CW, i % CW);
@@ -517,7 +546,7 @@ __global__ void __launch_bounds__(BT, 1)
 inline size_t build(Params& P, const RolloutWeights& w, float* scratch,
                     int M) {
   Carver cv{reinterpret_cast<uintptr_t>(scratch), 0};
-  P.n_tiles = build_layers(P.L, w, cv, M, true, &P.counters, &P.n_counters);
+  P.n_tiles = build_layers(P.L, w, cv, M, true, &P.cnt);
   const int first[2] = {0, 5};   // layer 0 of each MLP
   for (int i : first) {
     P.L[i].in = P.saved;
@@ -554,12 +583,14 @@ int rollout_bwd_grid_blocks(void) {
   return e ? -(int)e : blocks;
 }
 
-int rollout_bwd_barriers_per_step(void) { return BARRIERS_PER_STEP; }
+int rollout_bwd_barriers_per_call(void) { return BARRIERS_PER_CALL; }
 
 // saved (T, M, CW) entry carries from rollout_fwd, z (T, M, 48), t2j (M, 3),
 // dout (T, M, OUT_W) -> dcarry0 (M, CW), dz (T, M, 48), dt2j (M, 3);
-// scratch holds rollout_bwd_scratch_floats(M) floats, 16-byte aligned.
-// Enqueues one cooperative launch on `stream` and nothing else, does not
+// scratch holds rollout_bwd_scratch_floats(M) floats, 16-byte aligned,
+// and ends the call with its ready-waits and the ones that spun in its
+// first two int32 (read only by a recording caller). Enqueues one
+// cooperative launch on `stream` and nothing else, does not
 // synchronise; returns the launch's error (0 = none), a refused launch
 // included. A card whose blocks cannot hold every weight tile (fewer than
 // 132 SMs) is refused with cudaErrorInvalidConfiguration.

@@ -26,11 +26,13 @@
 // * Phases of a step. The next carry depends only on the decoder's head
 //   (the prior's head goes into the output alone), so the decoder's chain
 //   D0 -> D1 -> D2 -> D3 -> tail sets the pace and the prior runs beside
-//   it: phase k = 0..3 runs prior layer k and decoder layer k, phase 4 the
-//   tail alone (one block a row), and the prior head of step t runs
-//   beside phase 0 of step t + 1 (the last step's in a phase of its own).
-//   5 grid barriers a step, 5 T + 2 a call (one after the weights are
-//   loaded).
+//   it: phase k = 0..3 runs prior layer k and decoder layer k, then the
+//   tail (one block a row), and the prior head of step t runs beside
+//   phase 0 of step t + 1 (the last step's in a phase of its own). No
+//   grid barrier between phases (rollout_persistent.cuh's ready
+//   counters): one a call, after the weights are loaded. Layer 0 of step
+//   t waits for the tail rows of step t - 1 in its row tile; the tail for
+//   the decoder head's tiles.
 // * The prior head's finish writes the latent mean and exp(log-variance)
 //   straight into out[t][348:444]; the tail writes out[t][0:348].
 // * The running carry lives in scratch with rows padded to 352 floats (16
@@ -41,11 +43,14 @@
 //   in the kernel, so the C entry enqueues nothing but the launch.
 // * No pre-GroupNorm activation is kept: the backward recomputes its own.
 //
-// Why it is not nearer its bound: 5 T + 2 barriers at ~1.1 us each
-// (scripts/grid_barrier_study.py); a phase waits for its slowest block's
-// products (2, 4, 3 and 3 tiles at M=16), then for the L2 round trips
-// of its finishes; and the tail's lane-0 part runs serially, one warp a
-// row.
+// Why it is not nearer its bound: a step is a chain of latencies. At M=16
+// a block waits for its inputs ~23 of the ~44 us a step
+// (scripts/rollout_fwd_study.py): each layer costs its slowest producer's
+// units (2, 4, 3 and 3 tiles in phases 0-3), a signal (a fence, an L2
+// round trip) to the finisher, the finish's L2 reads and a signal to the
+// next layer's blocks; a block runs its prior and decoder tasks of a phase
+// together, so the prior's chain rides on the decoder's; and the tail's
+// lane-0 part runs serially, one warp a row.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o librollout_fwd.so rollout_fwd.cu
@@ -60,8 +65,8 @@ namespace cg = cooperative_groups;
 
 namespace humor {
 
-constexpr int STAGES = 5;
-constexpr int BARRIERS_PER_STEP = STAGES;
+constexpr int PHASES = 4;           // phases with products a step
+constexpr int BARRIERS_PER_CALL = 1;
 constexpr int CWP = (CW + 3) & ~3;     // running carry's padded row
 constexpr int OUT_X = D_X + 9;         // out: world x | contacts, then pm, pv
 static_assert(RAW + 2 * CW + OUT_X <= RING_FLOATS, "tail buffers fit");
@@ -74,8 +79,8 @@ struct Params {
   float* out;
   float* saved;
   float* pcarry;       // T x M x CWP: the running entry carries
-  int* counters;
-  int n_counters, n_tiles, M, T;
+  Counters cnt;
+  int n_tiles, M, T;
 };
 
 // One step's tail for one row, run by one warp (`lane` 0-31): from the
@@ -168,20 +173,29 @@ __device__ void tail_fwd_row(int lane, const float* c, const float* t2j,
   nc[350] = 0.f;
 }
 
-// One block a row: its threads gather the row's decoder head and entry
-// carry into shared memory (every load issued before the first store),
-// its first warp runs the tail there, then its threads write the world
-// output and the next carry (the running carry and saved[t + 1]).
-__device__ void tail_phase(const Params& P, const Layer* Ls, int t,
+// One block a row: once the decoder head of step t is finished in the
+// row's row tile, its threads gather the row's head and entry carry into
+// shared memory (every load issued before the first store), its first warp
+// runs the tail there, then its threads write the world output and the
+// next carry (the running carry and saved[t + 1]) and publish the row.
+// The entry carry is the one this block wrote at step t - 1 (a row is
+// always the same block's).
+__device__ void tail_phase(const Params& P, BlockState& bs, int t,
                            float* smem) {
   constexpr int N = RAW + CW;
   constexpr int PER = (N + BT - 1) / BT;
+  const Layer* Ls = bs.Ls;
   const int M = P.M;
   float* sd = smem;               // decoder head
   float* sc = sd + RAW;           // the entry carry
   float* so = sc + CW;            // the world output
   float* sn = so + OUT_X;         // the next carry
   for (int row = blockIdx.x; row < M; row += gridDim.x) {
+    const int r = row / RT;
+    wait_all(bs, col_tiles(Ls[8]), [&](int j, const int** p) {
+      *p = Ls[8].rdy_f + j * bs.R + r;
+      return t + 1;
+    });
     const float* carry = P.pcarry + ((size_t)t * M + row) * CWP;
     float v[PER];
 #pragma unroll
@@ -214,7 +228,7 @@ __device__ void tail_phase(const Params& P, const Layer* Ls, int t,
         if (i < CW) sv[i] = x;
       }
     }
-    __syncthreads();
+    publish_tail_row(bs, row);
   }
 }
 
@@ -234,35 +248,35 @@ __global__ void __launch_bounds__(BT, 1)
     P.pcarry[i] = x;
     if (c < CW) P.saved[(size_t)row * CW + c] = x;
   }
-  block_setup(P.L, P.n_tiles, P.counters, P.n_counters, bs, tiles);
-  grid.sync();
+  block_setup(P.L, P.n_tiles, P.cnt.base, P.cnt.n, P.cnt.tail, P.M, bs,
+              tiles);
+  grid.sync();   // counters zeroed, step 0's carry written
   const Layer* Ls = bs.Ls;
   auto finish = [&](bool, int l, int o, int step, int row0) {
     finish_fwd(Ls, P.M, l, o, step, row0);
   };
   // phase k < 4 of step t: prior layer k beside decoder layer k, and in
-  // phase 0 the prior head of step t - 1; phase 4 the tail. The last
-  // step's prior head runs in a phase of its own.
+  // phase 0 the prior head of step t - 1; then the tail. The last step's
+  // prior head runs in a phase of its own. Step t's tasks use their
+  // counters for the (t + 1)-th time; layer 0 reads the carry of the tail
+  // of step t - 1 (its t-th use).
   for (int t = 0; t <= P.T; ++t) {
-    for (int k = 0; k < (t < P.T ? STAGES : 1); ++k) {
+    for (int k = 0; k < (t < P.T ? PHASES : 1); ++k) {
       if (threadIdx.x == 0) {
-        // the counters' (t + 1)-th use (the prior head's t-th)
         int n = 0;
-        if (t < P.T && k < 4) {
-          bs.plan.set(n++, k, false, t, t + 1);
-          bs.plan.set(n++, 5 + k, false, t, t + 1);
+        if (t < P.T) {
+          const int in = k == 0 ? t : t + 1;
+          bs.plan.set(n++, k, false, t, t + 1, in);
+          bs.plan.set(n++, 5 + k, false, t, t + 1, in);
         }
-        if (k == 0 && t > 0) bs.plan.set(n++, 4, false, t - 1, t);
+        if (k == 0 && t > 0) bs.plan.set(n++, 4, false, t - 1, t, t);
         bs.plan.n = n;
       }
-      stage_products(bs, P.M, P.z, tiles, ring);
-      if (k == STAGES - 1) {
-        tail_phase(P, Ls, t, ring);
-      }
-      stage_finishes(bs, finish);
-      grid.sync();
+      run_phase(bs, P.z, tiles, ring, finish);
     }
+    if (t < P.T) tail_phase(P, bs, t, ring);
   }
+  add_tally(bs, P.cnt.stats);
 }
 
 // ---------------------------------------------------------------------------
@@ -273,7 +287,7 @@ __global__ void __launch_bounds__(BT, 1)
 inline size_t build(Params& P, const RolloutWeights& w, float* scratch,
                     int M, int T) {
   Carver cv{reinterpret_cast<uintptr_t>(scratch), 0};
-  P.n_tiles = build_layers(P.L, w, cv, M, false, &P.counters, &P.n_counters);
+  P.n_tiles = build_layers(P.L, w, cv, M, false, &P.cnt);
   P.pcarry = cv.take((size_t)T * M * CWP);
   const int first[2] = {0, 5};   // layer 0 of each MLP
   for (int i : first) {
@@ -309,11 +323,13 @@ int rollout_fwd_grid_blocks(void) {
   return e ? -(int)e : blocks;
 }
 
-int rollout_fwd_barriers_per_step(void) { return BARRIERS_PER_STEP; }
+int rollout_fwd_barriers_per_call(void) { return BARRIERS_PER_CALL; }
 
 // carry0 (M, CW), z (T, M, 48), t2j (M, 3) -> out (T, M, OUT_W) and the
 // entry carry of every step, saved (T, M, CW); scratch holds
-// rollout_fwd_scratch_floats(M, T) floats, 16-byte aligned. Enqueues one
+// rollout_fwd_scratch_floats(M, T) floats, 16-byte aligned, and ends the
+// call with its ready-waits and the ones that spun in its first two int32
+// (read only by a recording caller). Enqueues one
 // cooperative launch on `stream` and nothing else, does not synchronise;
 // returns the launch's error (0 = none), a refused launch included. A card
 // whose blocks cannot hold every weight tile (fewer than 132 SMs) is

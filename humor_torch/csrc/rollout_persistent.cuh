@@ -9,19 +9,58 @@
 // integer counter, and each row tile of each output tile of the phase is
 // dealt to one block, which waits for all the tile's K-slices and finishes
 // those rows from the partials summed in slice order (a fixed order:
-// repeats are bit-identical). A counter counts its arrivals over the whole
-// call: its g-th use is complete at g times its K-slices, so no finisher
-// resets it under another's wait. The forward finish (bias,
-// GroupNorm(16)+ReLU, or a head's output) is here; the backward's finish
-// and both kernels' tails and schedules are in their own files.
+// repeats are bit-identical). The forward finish (bias, GroupNorm(16)+ReLU,
+// or a head's output) is here; the backward's finish and both kernels'
+// tails and schedules are in their own files.
+//
+// Dataflow, not barriers. No grid barrier separates the phases: every
+// finish publishes its (layer, output tile, row tile) on a ready counter
+// (`rdy_f`, `rdy_b`), and each tail row its row tile on the tail counter;
+// every consumer waits for what it reads and every writer for the readers
+// of what it overwrites. All counters count over the whole call: the g-th
+// use of one is complete when it reads g (times the K-slices for an arrival
+// counter, times the rows of the row tile for the tail's). The uses of a
+// layer are numbered by step in the order the kernel runs them (the
+// forward from step 0, the backward from step T - 1). The waits (`u` the
+// waiting task's use, rows r):
+//   * a product task, before the block stages its inputs: the finished
+//     tiles of its input (the previous layer's output slice s, or
+//     d(output) tile nn of the next layer; the tail's rows where it reads
+//     the carry or a head's cotangent), and its own output tile's finish
+//     of use u - 1, which has read the single buffer of partials it is
+//     about to write;
+//   * a finishing job: its tile's arrivals; before it overwrites a layer's
+//     output (one copy), the readers of use u - 1 (the next layer's
+//     product tasks, or the tail where a head is read by it); before it
+//     overwrites the pre-GroupNorm h (two copies by step parity), the
+//     backward finish that read use u - 2; a backward finish also the h it
+//     reads, and a z slice the next decoder layer's z slice, which wrote
+//     dz before it adds;
+//   * a tail row (in its kernel's file): the heads of its step, and in the
+//     backward the layer-0 cotangents of the step after.
+// Every block runs its tasks in one order: step by step, phase by phase,
+// a phase's products before its finishes, then the tail. Each wait points
+// to a task earlier in that order, and a block signals a phase's products
+// before it waits for any of the phase's finishes, and those finishes
+// before it waits for the next phase, so, all blocks being co-resident (a
+// cooperative launch), the earliest unfinished task can always run and no
+// wait deadlocks. A block waits once for all its products of a phase (one
+// round trip, whatever their number), arrives for all of them at once, and
+// publishes all its finishes of the phase at once: each signal costs a
+// fence, and a fence by a thread with copies in flight waits for them,
+// so signals are few and fall where no copy is in flight (PERF.md has the
+// designs that signalled more often and ran slower).
 //
 // Everything here has internal linkage (an unnamed namespace): each kernel
 // library is one translation unit and gets its own copy, statics included,
 // so two libraries loaded into one process share no C++ object.
 //
 // Scratch written inside a launch is read only through L2 (__ldcg or
-// cp.async.cg), never through the non-coherent read-only path or an
-// L1-allocating copy; only the weights and the inputs are read that way.
+// cp.async.cg), after an ld.acquire of its counter and a block barrier,
+// never through the non-coherent read-only path or an L1-allocating copy;
+// only the weights and the inputs are read that way. A writer's threads
+// store and pass a block barrier; then one thread fences (acq_rel, not
+// a fence by every thread) and adds to the counter.
 #pragma once
 
 #include <stdint.h>
@@ -73,6 +112,8 @@ struct Layer {
   float* dh_out;       // d(input), M x ka: the previous layer's dh, or dx
   int* cnt_f;          // arrivals at each forward output tile, over the call
   int* cnt_b;          // arrivals at each backward output slice, likewise
+  int* rdy_f;          // finished forward output tiles: tile x row tile
+  int* rdy_b;          // finished backward output slices: slice x row tile
   int in_ld, ka, kz, n;
   int out_ld;
   int exp_col;         // a head's columns from here on are exp(h)
@@ -140,6 +181,20 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
                : "memory");
   return v;
+}
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+// Adds 1 to a counter as a release of the block's stores: called by one
+// thread after a block barrier that follows them (a fence by that thread
+// alone, then a relaxed add).
+__device__ __forceinline__ void release_add(int* p) {
+  asm volatile("fence.acq_rel.gpu;\n\tred.relaxed.gpu.global.add.s32 [%0], 1;"
+               ::"l"(p)
+               : "memory");
 }
 
 // global -> shared, asynchronous, through L2 only: the first `bytes` (0-16)
@@ -214,58 +269,85 @@ __device__ void load_tiles(const Layer* Ls, const int (*own)[MAX_TILES],
   }
 }
 
-// A work unit: one direction of one held tile for one row tile.
+// A work unit: one direction of one held tile for one row tile; `e` is
+// its entry in the phase's plan.
 struct Unit {
-  int l, s, nn, slot, bwd, row0, step;
+  int l, s, nn, slot, bwd, e, row0, step;
 };
 
 // A task (a unit for every row tile), packed so that a unit's staging
 // waits on one 8-byte shared-memory load: x = layer | K-slice << 4 |
-// column tile << 9 | slot << 14 | backward << 18, y = step.
+// column tile << 9 | slot << 14 | backward << 18 | entry << 19, y = step.
 static_assert(NL <= 16 && MAX_SLICES < 32 && HID / TN < 32 && MAX_TILES < 16,
               "task fields fit their bits");
 __device__ __forceinline__ int2 pack_task(int l, int s, int nn, int slot,
-                                          int bwd, int step) {
-  return make_int2(l | s << 4 | nn << 9 | slot << 14 | bwd << 18, step);
+                                          int bwd, int e, int step) {
+  return make_int2(l | s << 4 | nn << 9 | slot << 14 | bwd << 18 | e << 19,
+                   step);
+}
+__device__ __forceinline__ Unit unpack_task(int2 t, int row0) {
+  Unit u;
+  u.l = t.x & 15;
+  u.s = (t.x >> 4) & 31;
+  u.nn = (t.x >> 9) & 31;
+  u.slot = (t.x >> 14) & 15;
+  u.bwd = (t.x >> 18) & 1;
+  u.e = (t.x >> 19) & 3;
+  u.row0 = row0;
+  u.step = t.y;
+  return u;
 }
 
 struct StageLists {
   int2 tasks[2 * MAX_TILES];
-  int seg_l[4], seg_bwd[4], seg_step[4], seg_n[4], seg_need[4];
-  int n, nseg, R;
+  int seg_l[4], seg_bwd[4], seg_step[4], seg_n[4], seg_use[4];
+  int n, nseg;
 };
 
 // A phase's products: up to four (layer, direction, step, use) entries;
 // `use` counts the uses of the layer's counters in that direction so far,
-// this one included. Thread 0 fills it in shared memory, counting the
-// entries in a register (a thread-local copy indexed at run time would
-// live in local memory, read back through L2).
+// this one included, and `in_use` the use its input's counters must have
+// reached (0: an input of the launch, no wait). Thread 0 fills it in
+// shared memory, counting the entries in a register (a thread-local copy
+// indexed at run time would live in local memory, read back through L2).
 struct Plan {
-  int l[4], bwd[4], step[4], use[4];
+  int l[4], bwd[4], step[4], use[4], in_use[4];
   int n;
-  __device__ void set(int e, int layer, bool backward, int s, int u) {
+  __device__ void set(int e, int layer, bool backward, int s, int u,
+                      int in_u) {
     l[e] = layer;
     bwd[e] = backward;
     step[e] = s;
     use[e] = u;
+    in_use[e] = in_u;
   }
 };
 
 // What a block keeps in shared memory for the whole call: the layer table,
-// its tiles' (layer, K-slice, column tile), a phase's plan and lists.
+// its tiles' (layer, K-slice, column tile), a phase's plan and lists, the
+// tail counter, the rows and row tiles, and the block's wait tally
+// (thread 0's).
 struct BlockState {
   Layer Ls[NL];
   int own[3][MAX_TILES];
   int n_own;
   Plan plan;
   StageLists lists;
+  int* tail;           // tail rows done in each row tile, over the call
+  int M, R;
+  int waits, stalled;
 };
 
+__device__ __forceinline__ int tile_rows(const BlockState& bs, int r) {
+  return min(RT, bs.M - r * RT);
+}
+
 // Copies the layer table into shared memory, lists the block's tiles,
-// zeroes the arrival counters (grid-stride) and loads the block's tiles.
-// The caller passes a grid barrier before any block arrives at a counter.
+// zeroes the counters (grid-stride) and loads the block's tiles. The
+// caller passes a grid barrier before any block waits on a counter.
 __device__ void block_setup(const Layer* L, int n_tiles, int* counters,
-                            int n_counters, BlockState& bs, float* tiles) {
+                            int n_counters, int* tail, int M, BlockState& bs,
+                            float* tiles) {
   for (int i = threadIdx.x; i < NL * (int)sizeof(Layer) / 4; i += BT)
     reinterpret_cast<int*>(bs.Ls)[i] = reinterpret_cast<const int*>(L)[i];
   __syncthreads();
@@ -275,12 +357,140 @@ __device__ void block_setup(const Layer* L, int n_tiles, int* counters,
          g += gridDim.x, ++i)
       bs.own[0][i] = decode(bs.Ls, g, &bs.own[1][i], &bs.own[2][i]);
     bs.n_own = i;
+    bs.tail = tail;
+    bs.M = M;
+    bs.R = (M + RT - 1) / RT;
+    bs.waits = bs.stalled = 0;
   }
   for (int i = blockIdx.x * BT + threadIdx.x; i < n_counters;
        i += gridDim.x * BT)
     counters[i] = 0;
   __syncthreads();
   load_tiles(bs.Ls, bs.own, bs.n_own, tiles);
+}
+
+// Blocks until counter j of a wait reaches its need, for every j < n:
+// at(j, &p) points p at counter j and returns its need (<= 0: none).
+// Thread j looks at counter j (j + BT, ... beyond the block); a block
+// barrier ends the wait. Thread 0 tallies the wait, and a stall where any
+// counter was short at the first look.
+template <class At>
+__device__ void wait_all(BlockState& bs, int n, At at) {
+  int spun = 0;
+  for (int j = threadIdx.x; j < n; j += BT) {
+    const int* p = nullptr;
+    const int need = at(j, &p);
+    if (need > 0 && ld_acquire(p) < need) {
+      spun = 1;
+      while (ld_relaxed(p) < need) {
+      }
+      ld_acquire(p);
+    }
+  }
+  spun = __syncthreads_or(spun);
+  if (threadIdx.x == 0) {
+    ++bs.waits;
+    bs.stalled += spun != 0;
+  }
+}
+
+// Counter j < 2R of the wait of a product task (entry e of the plan, use
+// u): j < R the finished input of row tile j, then the finish of use u - 1
+// of its own output tile in row tile j - R. Returns the need (see the
+// header).
+__device__ __forceinline__ int task_dep(const BlockState& bs, const Unit& u,
+                                        int j, const int** p) {
+  const Layer& L = bs.Ls[u.l];
+  const int R = bs.R, r = j % R;
+  const int use = bs.plan.use[u.e], in_use = bs.plan.in_use[u.e];
+  if (j >= R) {
+    *p = (u.bwd ? L.rdy_b + u.s * R : L.rdy_f + u.nn * R) + r;
+    return use - 1;
+  }
+  if (in_use <= 0) return 0;
+  if (u.bwd) {
+    if (L.gs == nullptr) {   // a head: d(output) from the tail
+      *p = bs.tail + r;
+      return in_use * tile_rows(bs, r);
+    }
+    *p = bs.Ls[u.l + 1].rdy_b + u.nn * R + r;
+    return in_use;
+  }
+  if (u.s >= act_slices(L)) return 0;   // z
+  if (L.prev < 0) {   // the carry, from the tail
+    *p = bs.tail + r;
+    return in_use * tile_rows(bs, r);
+  }
+  *p = bs.Ls[L.prev].rdy_f + u.s * R + r;
+  return in_use;
+}
+
+// Counter j < FINISH_WAITS of a finishing job's wait (backward or
+// forward, layer l, its output tile or slice `tile`, row tile r, use u):
+// j = 0 its arrivals, then the guards of the header (at most a layer's
+// slices and two more). Returns the need, or -1 past the last.
+constexpr int FINISH_WAITS = 2 + MAX_SLICES;
+__device__ int finish_dep(const BlockState& bs, bool bwd, int l, int tile,
+                          int r, int u, int j, const int** p) {
+  const Layer* Ls = bs.Ls;
+  const Layer& L = Ls[l];
+  const int R = bs.R;
+  if (j == 0) {
+    *p = bwd ? L.cnt_b + tile : L.cnt_f + tile;
+    return (bwd ? col_tiles(L) : slices(L)) * u;
+  }
+  --j;
+  if (!bwd) {
+    if (L.gs != nullptr) {
+      // relu(GN(h)): the next layer's products of use u - 1 read it
+      const Layer& C = Ls[l + 1];
+      if (j < col_tiles(C)) {
+        *p = C.cnt_f + j;
+        return slices(C) * (u - 1);
+      }
+      j -= col_tiles(C);
+      // h of use u - 2 (same parity): read by the next layer's backward
+      // finish of that use
+      if (L.h != nullptr && j == 0) {
+        *p = C.rdy_b + tile * R + r;
+        return u - 2;
+      }
+      return -1;
+    }
+    if (L.out_step == 0 && j == 0) {   // a head's one copy: the tail reads it
+      *p = bs.tail + r;
+      return (u - 1) * tile_rows(bs, r);
+    }
+    return -1;
+  }
+  if (tile >= act_slices(L)) {
+    // z columns: the next decoder layer wrote dz[step] first
+    if (l + 1 < NL && j == 0) {
+      const Layer& N = Ls[l + 1];
+      *p = N.rdy_b + (slices(N) - 1) * R + r;
+      return u;
+    }
+    return -1;
+  }
+  if (L.prev < 0) {
+    // layer 0's d(input): the tail reads the step before's until it runs
+    if (j == 0) {
+      *p = bs.tail + r;
+      return u * tile_rows(bs, r);
+    }
+    return -1;
+  }
+  const Layer& P = Ls[L.prev];
+  if (j == 0) {   // the h this finish reads
+    *p = P.rdy_f + tile * R + r;
+    return u;
+  }
+  --j;
+  if (j < slices(P)) {   // dh of use u - 1: read by the previous layer
+    *p = P.cnt_b + j;
+    return col_tiles(P) * (u - 1);
+  }
+  return -1;
 }
 
 // Start copying a unit's input (RT rows x 64 columns) into `buf`: the
@@ -470,27 +680,43 @@ __device__ void finish_fwd(const Layer* Ls, int M, int l, int nn, int t,
       make_float4(y[0], y[1], y[2], y[3]);
 }
 
-// The phase's products: for every held tile whose layer is in the block's
-// plan (filled by thread 0 before the call), that entry's product (the
-// forward reads the tile's rows, the backward's transposed product its
-// columns). Units (tile, entry, row tile) run in order with NBUF - 1
-// inputs in flight and store their partials; then each task arrives at its
-// output tile's counter (one atomic a task, all at once). Lists the
-// phase's finishing jobs in `sl` for stage_finishes.
-__device__ void stage_products(BlockState& bs, int M, const float* z,
-                               const float* tiles, float* ring) {
+// The k-th finishing job of this block in the phase (the phase's jobs,
+// output tile x row tile in segments, dealt from the last block down):
+// its segment and its index there; false past the block's last.
+__device__ __forceinline__ bool block_job(const StageLists& sl, int k,
+                                          int* sg, int* o) {
+  int i = gridDim.x - 1 - blockIdx.x + k * gridDim.x, g = 0;
+  while (g < sl.nseg && i >= sl.seg_n[g]) i -= sl.seg_n[g++];
+  *sg = g;
+  *o = i;
+  return g < sl.nseg;
+}
+
+// A phase of the block. Its products: for every held tile whose layer is
+// in the block's plan (filled by thread 0 before the call), that entry's
+// product (the forward reads the tile's rows, the backward's transposed
+// product its columns), once every task's input is finished and its
+// partials' buffer read (task_dep, one wait for all of them); units
+// (task, row tile) run in order with NBUF - 1 inputs in flight and store
+// their partials; then each task arrives at its output tile's counter.
+// Its finishing jobs: each waits for its tile's K-slices and for the
+// readers of what it overwrites (finish_dep), then finish(backward?,
+// layer, tile, step, first row); once all are done they are published on
+// their tiles' ready counters.
+template <class Finish>
+__device__ void run_phase(BlockState& bs, const float* z, const float* tiles,
+                          float* ring, Finish finish) {
   const Layer* Ls = bs.Ls;
   const int (*own)[MAX_TILES] = bs.own;
   StageLists& sl = bs.lists;
-  const int R = (M + RT - 1) / RT;
+  const int M = bs.M, R = bs.R;
   // this block's tasks, (slot, entry) in slot order, and the phase's
   // finishing jobs (output tile x row tile) in segments (layer, direction,
-  // step, count, the arrivals that complete a tile), listed in shared
-  // memory by the first warp while the others wait: lane i matches held
-  // tile i (at most MAX_TILES < 32) against the plan, lane e < 4 builds
-  // entry e's segment. (A thread-local array indexed at run time would
-  // live in local memory, which the large shared-memory carve-out leaves
-  // little L1 to cache.)
+  // step, count, use), listed in shared memory by the first warp while the
+  // others wait: lane i matches held tile i (at most MAX_TILES < 32)
+  // against the plan, lane e < 4 builds entry e's segment. (A thread-local
+  // array indexed at run time would live in local memory, which the large
+  // shared-memory carve-out leaves little L1 to cache.)
   if (threadIdx.x < 32) {
     __syncwarp();   // the plan, filled by thread 0
     const int lane = threadIdx.x;
@@ -520,9 +746,11 @@ __device__ void stage_products(BlockState& bs, int M, const float* z,
     const unsigned below = (1u << lane) - 1;
     int at = __popc(b1 & below) + __popc(b2 & below);
     if (e1 >= 0)
-      sl.tasks[at++] = pack_task(l, s, nn, lane, plan.bwd[e1], plan.step[e1]);
+      sl.tasks[at++] = pack_task(l, s, nn, lane, plan.bwd[e1], e1,
+                                 plan.step[e1]);
     if (e2 >= 0)
-      sl.tasks[at] = pack_task(l, s, nn, lane, plan.bwd[e2], plan.step[e2]);
+      sl.tasks[at] = pack_task(l, s, nn, lane, plan.bwd[e2], e2,
+                               plan.step[e2]);
     if (lane < np) {
       const int le = plan.l[lane];
       const Layer& L = Ls[le];
@@ -531,11 +759,10 @@ __device__ void stage_products(BlockState& bs, int M, const float* z,
       sl.seg_bwd[lane] = b;
       sl.seg_step[lane] = plan.step[lane];
       sl.seg_n[lane] = (b ? slices(L) : col_tiles(L)) * R;
-      sl.seg_need[lane] = (b ? col_tiles(L) : slices(L)) * plan.use[lane];
+      sl.seg_use[lane] = plan.use[lane];
     }
     if (lane == 0) {
       sl.n = __popc(b1) + __popc(b2);
-      sl.R = R;
       sl.nseg = np;
     }
   }
@@ -543,18 +770,13 @@ __device__ void stage_products(BlockState& bs, int M, const float* z,
   const int n = sl.n;
   const int2* tasks = sl.tasks;
   const int units = n * R;
-  auto unit = [&](int x) {
-    const int2 t = tasks[x / R];
-    Unit u;
-    u.l = t.x & 15;
-    u.s = (t.x >> 4) & 31;
-    u.nn = (t.x >> 9) & 31;
-    u.slot = (t.x >> 14) & 15;
-    u.bwd = (t.x >> 18) & 1;
-    u.row0 = (x % R) * RT;
-    u.step = t.y;
-    return u;
-  };
+  auto unit = [&](int x) { return unpack_task(tasks[x / R], (x % R) * RT); };
+  // counter j % 2R of task j / 2R
+  if (n > 0)
+    wait_all(bs, 2 * R * n, [&](int j, const int** p) {
+      return task_dep(bs, unpack_task(tasks[j / (2 * R)], 0), j % (2 * R),
+                      p);
+    });
   for (int x = 0; x < NBUF - 1; ++x) {
     if (x < units)
       stage_input(Ls, unit(x), M, z, ring + (x % NBUF) * RT * LD_IN);
@@ -572,41 +794,38 @@ __device__ void stage_products(BlockState& bs, int M, const float* z,
                  tiles + u.slot * TILE);
   }
   cp_async_wait<0>();
-  // every partial of every task is stored: arrive
-  __threadfence();
+  // every partial of every task is stored: arrive (thread i for task i)
   __syncthreads();
   if ((int)threadIdx.x < n) {
-    const Unit u = unit(threadIdx.x * R);
+    const Unit u = unpack_task(tasks[threadIdx.x], 0);
     const Layer& L = Ls[u.l];
-    atomicAdd(u.bwd ? L.cnt_b + u.s : L.cnt_f + u.nn, 1);
+    release_add(u.bwd ? L.cnt_b + u.s : L.cnt_f + u.nn);
   }
+  int jobs = 0, sg, o;
+  for (; block_job(sl, jobs, &sg, &o); ++jobs) {
+    const bool bwd = sl.seg_bwd[sg];
+    const int l = sl.seg_l[sg], use = sl.seg_use[sg];
+    wait_all(bs, FINISH_WAITS, [&](int j, const int** p) {
+      return finish_dep(bs, bwd, l, o / R, o % R, use, j, p);
+    });
+    finish(bwd, l, o / R, sl.seg_step[sg], (o % R) * RT);
+  }
+  // every job's rows are stored: publish (thread k for job k)
+  __syncthreads();
+  for (int k = threadIdx.x; k < jobs; k += BT) {
+    block_job(sl, k, &sg, &o);
+    const Layer& L = Ls[sl.seg_l[sg]];
+    release_add((sl.seg_bwd[sg] ? L.rdy_b : L.rdy_f) + o);
+  }
+  __syncthreads();   // the lists read: the next phase may rewrite them
 }
 
-// The phase's finishing jobs (a row tile of an output tile), dealt to the
-// blocks from the last one down (the products are dealt from the first):
-// this block waits for each of its jobs' tile to have all its K-slices and
-// finishes its rows with finish(backward?, layer, tile, step, first row).
-template <class Finish>
-__device__ void stage_finishes(const BlockState& bs, Finish finish) {
-  const StageLists& sl = bs.lists;
-  for (int i = gridDim.x - 1 - blockIdx.x;; i += gridDim.x) {
-    int sg = 0, o = i;
-    while (sg < sl.nseg && o >= sl.seg_n[sg]) o -= sl.seg_n[sg++];
-    if (sg == sl.nseg) break;
-    const bool bwd = sl.seg_bwd[sg];
-    const int l = sl.seg_l[sg];
-    const Layer& L = bs.Ls[l];
-    const int tile = o / sl.R, row0 = (o % sl.R) * RT;
-    if (threadIdx.x == 0) {
-      const int* cnt = bwd ? L.cnt_b + tile : L.cnt_f + tile;
-      while (ld_acquire(cnt) < sl.seg_need[sg]) {
-      }
-    }
-    __syncthreads();   // the tile's K-slices have arrived
-    __threadfence();
-    finish(bwd, l, tile, sl.seg_step[sg], row0);
-    __syncthreads();
-  }
+// Publishes a tail row of row tile r (after its stores) on the tail
+// counter.
+__device__ __forceinline__ void publish_tail_row(const BlockState& bs,
+                                                 int row) {
+  __syncthreads();
+  if (threadIdx.x == 0) release_add(bs.tail + row / RT);
 }
 
 // ---------------------------------------------------------------------------
@@ -625,18 +844,59 @@ struct Carver {
   }
 };
 
-// Fills the layer table (weights, widths, the forward's partials and
-// outputs, with the backward's buffers where `bwd`), then the arrival
-// counters and the dealing order; the caller sets each layer-0 input and
-// the backward's dh_in. Returns the number of tiles.
+// The call's integer counters, first in its scratch and zeroed in the
+// kernel: the wait tally (scratch[0] waits and scratch[1] stalled waits,
+// as int32, summed over the blocks at the end of the call), the tail
+// counter (a row tile each), then each layer's arrival and ready counters.
+struct Counters {
+  int* base;
+  int n;
+  int* stats;
+  int* tail;
+};
+
+// Fills the layer table (weights, widths, the counters, the forward's
+// partials and outputs, with the backward's buffers where `bwd`) and the
+// dealing order; the caller sets each layer-0 input and the backward's
+// dh_in. Returns the number of tiles.
 inline int build_layers(Layer* Ls, const RolloutWeights& w, Carver& cv,
-                        int M, bool bwd, int** counters, int* n_counters) {
+                        int M, bool bwd, Counters* c) {
   const int DW[4] = {HID, HID, 512, RAW};      // decoder layer widths
+  const int R = (M + RT - 1) / RT;
   for (int i = 0; i < NL; ++i) {
     Layer& L = Ls[i];
     L = Layer{};
     const bool prior = i < 5;
     const int j = prior ? i : i - 5;            // index within its MLP
+    L.n = prior ? (j < 4 ? HID : PHEAD) : DW[j];
+    L.ka = j == 0 ? D_X : (prior ? HID : DW[j - 1]);
+    L.kz = prior ? 0 : LAT;
+    L.prev = j == 0 ? -1 : i - 1;
+  }
+  // the counters (ints) before the floats
+  int n_cnt = 2 + R;
+  for (int i = 0; i < NL; ++i)
+    n_cnt += (col_tiles(Ls[i]) + (bwd ? slices(Ls[i]) : 0)) * (1 + R);
+  int* cnt = reinterpret_cast<int*>(cv.take(n_cnt));
+  *c = Counters{cnt, n_cnt, cnt, cnt + 2};
+  cnt += 2 + R;
+  for (int i = 0; i < NL; ++i) {
+    Layer& L = Ls[i];
+    L.cnt_f = cnt;
+    cnt += col_tiles(L);
+    L.rdy_f = cnt;
+    cnt += col_tiles(L) * R;
+    if (bwd) {
+      L.cnt_b = cnt;
+      cnt += slices(L);
+      L.rdy_b = cnt;
+      cnt += slices(L) * R;
+    }
+  }
+  for (int i = 0; i < NL; ++i) {
+    Layer& L = Ls[i];
+    const bool prior = i < 5;
+    const int j = prior ? i : i - 5;
     const int last = prior ? 4 : 3;
     L.w = prior ? w.pw[j] : w.dw[j];
     L.bias = prior ? w.pb[j] : w.db[j];
@@ -644,10 +904,6 @@ inline int build_layers(Layer* Ls, const RolloutWeights& w, Carver& cv,
       L.gs = prior ? w.pgs[j + 1] : w.dgs[j + 1];
       L.gb = prior ? w.pgb[j + 1] : w.dgb[j + 1];
     }
-    L.n = prior ? (j < 4 ? HID : PHEAD) : DW[j];
-    L.ka = j == 0 ? D_X : (prior ? HID : DW[j - 1]);
-    L.kz = prior ? 0 : LAT;
-    L.prev = j == 0 ? -1 : i - 1;
     if (j > 0) {
       L.in = Ls[i - 1].out;
       L.in_ld = L.ka;
@@ -662,21 +918,6 @@ inline int build_layers(Layer* Ls, const RolloutWeights& w, Carver& cv,
     L.exp_col = L.n;
     if (bwd) L.dh_out = cv.take((size_t)M * L.ka);
   }
-  // counters (ints) after the floats
-  int n_cnt = 0;
-  for (int i = 0; i < NL; ++i)
-    n_cnt += col_tiles(Ls[i]) + (bwd ? slices(Ls[i]) : 0);
-  int* cnt = reinterpret_cast<int*>(cv.take(n_cnt));
-  *counters = cnt;
-  *n_counters = n_cnt;
-  for (int i = 0; i < NL; ++i) {
-    Ls[i].cnt_f = cnt;
-    cnt += col_tiles(Ls[i]);
-    if (bwd) {
-      Ls[i].cnt_b = cnt;
-      cnt += slices(Ls[i]);
-    }
-  }
   // dealing order: layers of the same phases apart, so that every phase's
   // tiles spread evenly over the blocks (for the forward's phases too: its
   // busiest block holds 2, 4, 3 and 3 tiles in phases 0-3, the prior head
@@ -689,6 +930,14 @@ inline int build_layers(Layer* Ls, const RolloutWeights& w, Carver& cv,
     g += slices(L) * col_tiles(L);
   }
   return g;
+}
+
+// Adds the block's wait tally to the call's (after its last wait).
+__device__ __forceinline__ void add_tally(const BlockState& bs, int* stats) {
+  if (threadIdx.x == 0) {
+    atomicAdd(stats, bs.waits);
+    atomicAdd(stats + 1, bs.stalled);
+  }
 }
 
 // Co-resident blocks of `kernel` on the current device, queried once a
@@ -706,8 +955,8 @@ cudaError_t grid_blocks(const void* kernel, int* blocks) {
                              SMEM_BYTES);
     if (e) return e;
     int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BT,
-                                                      SMEM_BYTES);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      BT, SMEM_BYTES);
     if (e) return e;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e) return e;

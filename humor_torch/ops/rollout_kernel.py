@@ -29,10 +29,12 @@ SM holds a share of the weights in shared memory as 64 x 64 tiles loaded
 once a call, a product is split over K into those tiles, and each split-K
 output tile is finished by one block dealt it, in a fixed summation order.
 The forward runs prior layer k beside decoder layer k, then the tail, with
-the prior head beside the next step's first layers (5 grid-wide barriers a
-step, csrc/rollout_fwd.cu); the
-backward runs the recompute of step t beside the backward of step t + 1
-(6 a step, csrc/rollout_bwd.cu). Math is plain f32 FMA: no TF32, no bf16.
+the prior head beside the next step's first layers (csrc/rollout_fwd.cu);
+the backward runs the recompute of step t beside the backward of step
+t + 1 (csrc/rollout_bwd.cu). No grid barrier separates the phases: each
+finished tile is published on a ready counter, and each task waits for
+the tiles it reads and for the readers of what it overwrites. Math is
+plain f32 FMA: no TF32, no bf16.
 
 Layout (shared by the kernels and the plain versions):
   carry (M, 351) = x (339: trans 3 | trans_vel 3 | root 9 | root_vel 3 |
@@ -57,6 +59,7 @@ import torch
 from humor_torch.models.canonical import apply_world2local, frame_from_state
 from humor_torch.ops import cuda_build
 from humor_torch.ops.mlp import GN_EPS, GN_GROUPS
+from humor_torch.utils import profiling
 
 LATENT = 48
 D_X = 339
@@ -527,19 +530,31 @@ def _design(name) -> Dict[str, int]:
     if blocks <= 0:
         cuda_build.check(lib, -blocks, name + " grid query")
     return {"grid_blocks": blocks,
-            "barriers_per_step": getattr(lib, name + "_barriers_per_step")()}
+            "barriers_per_call": getattr(lib, name + "_barriers_per_call")()}
 
 
 def forward_design() -> Dict[str, int]:
     """The forward kernel's launch on this device: blocks of its grid and
-    grid-wide barriers a step (loads and builds it; needs a GPU)."""
+    grid-wide barriers a call (loads and builds it; needs a GPU)."""
     return _design("rollout_fwd")
 
 
 def backward_design() -> Dict[str, int]:
     """The backward kernel's launch on this device: blocks of its grid and
-    grid-wide barriers a step (loads and builds it; needs a GPU)."""
+    grid-wide barriers a call (loads and builds it; needs a GPU)."""
     return _design("rollout_bwd")
+
+
+def _count_waits(scratch):
+    """While profiling records, adds the call's ready-waits and the ones
+    that spun (the first two int32 of its scratch) to the counters
+    `rollout.waits` and `rollout.waits_stalled`: a read of the card, so a
+    sync. Reads nothing otherwise."""
+    if not profiling.active():
+        return
+    waits, stalled = scratch[:2].view(torch.int32).tolist()
+    profiling.count("rollout.waits", waits)
+    profiling.count("rollout.waits_stalled", stalled)
 
 
 def _forward_cuda(w: RolloutWeights, carry0, z, t2j):
@@ -559,6 +574,7 @@ def _forward_cuda(w: RolloutWeights, carry0, z, t2j):
                          saved.data_ptr(), scratch.data_ptr(), M, T, stream)
     cuda_build.check(lib, rc, "rollout_fwd")
     launches["rollout_fwd"] += 1
+    _count_waits(scratch)
     return out, saved
 
 
@@ -580,6 +596,7 @@ def _backward_cuda(w: RolloutWeights, saved, z, t2j, dout):
                          scratch.data_ptr(), M, T, stream)
     cuda_build.check(lib, rc, "rollout_bwd")
     launches["rollout_bwd"] += 1
+    _count_waits(scratch)
     return dcarry0, dz, dt2j
 
 

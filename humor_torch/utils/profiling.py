@@ -148,6 +148,12 @@ def count(name: str, n: int = 1) -> None:
         _record.counters[name] += n
 
 
+def active() -> bool:
+    """Whether a `recording()` block is open: a counter that costs a read
+    of the card is read only then."""
+    return _on
+
+
 def _count_sync(record: Record) -> None:
     stack = _stack()
     if stack:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build sources of a rollout kernel and report, for each, what ptxas says
 (registers, spills), its time on the card, and where a call's time goes
-phase by phase.
+step by step.
 
     python3 scripts/rollout_bwd_study.py humor_torch/csrc/rollout_bwd.cu \
         _proof/rollout_bwd_other.cu
@@ -16,28 +16,37 @@ lists. Each is built with the port's nvcc flags plus `-Xptxas -v` (with
 the source's own directory, then humor_torch/csrc, on the include path,
 so that an older source finds the headers it was written against where
 they are put beside it) into build/rollout_study/, up to three times:
-as it is; where it has grid barriers, as a traced copy in which thread 0
-of block 0 stores clock64() after every grid.sync(); and, where it has the
-current layout, as a copy in which thread 0 of every block adds up its
-cycles by activity. The current sources' shared machinery
-(rollout_persistent.cuh) is pasted into the copies, so that the marks
+as it is; as a traced copy in which thread 0 of block 0 stores clock64()
+at marks; and, where it has the current layout or the barrier layout
+before it, as a copy in which thread 0 of every block adds up its cycles
+by activity. The shared machinery (rollout_persistent.cuh, the source's
+own where it lies beside it) is pasted into the copies, so that the marks
 reach into it.
 
 Times are CUDA events over 5 calls at T=59 and M = 16 and 128 (the damped
 weights and inputs of chip_smoke.py), the sources in turns (a b ... b a).
-The traced copy, run once at each M, gives each phase's share of the call
-(the cycles from one barrier to the next, averaged over the steps: the
-backward's F0-F4 recompute, TL tail, B0-B4 backward, with F_k of step t
-beside B_k of step t + 1 where the source pipelines them; the forward's
-P_k|D_k, the previous step's P4 in phase 0, and TL) and, scaled by the
-untraced time, its microseconds a
-step. A source without grid barriers (a launch a layer) gives instead the
-device time of each of its kernels a step, from torch.profiler. The
-activity copy (listing a phase's tasks, waiting for a unit's input, the
-units' products, arriving, waiting for a finished tile's K-slices,
-finishing it, the tail, the barriers, the rest) gives each activity's microseconds a step, the
-mean over blocks and the largest. Needs a GPU and nvcc; prints one JSON
-line per source, then the card's name and power limit.
+The traced copy, run once at each M, gives:
+  * for a source with grid barriers in its step loop (`<kind>_barriers_
+    per_step`; before the ready counters), each phase's share of the call
+    (the cycles from one barrier to the next, averaged over the steps: the
+    backward's F0-F4 recompute, TL tail, B0-B4 backward, with F_k of step t
+    beside B_k of step t + 1 where the source pipelines them; the
+    forward's P_k|D_k, the previous step's P4 in phase 0, and TL) and,
+    scaled by the untraced time, its microseconds a step;
+  * for a source without them (`<kind>_barriers_per_call`: blocks flow
+    from phase to phase on ready counters), block 0's cycles from the
+    start of one step to the next, as microseconds a step (its mean and
+    its largest over the steps), and the set-up before the first step.
+A source that launches a kernel a layer gives instead the device time of
+each of its kernels a step, from torch.profiler. The activity copy
+(listing a phase's tasks; waiting for a unit's input, with the poll for
+the next task's; the units' products; arriving; waiting for a finished
+tile's K-slices and its guards; finishing it; the tail with its wait; the
+grid barriers; the rest) gives each activity's microseconds a step, the
+mean over blocks and the largest. Each source's wait tally (ready-waits
+and the ones that spun, a call) is printed where it has one. Needs a GPU
+and nvcc; prints one JSON line per source, then the card's name and power
+limit.
 """
 
 import collections
@@ -55,26 +64,32 @@ STEPS = 59
 ROWS = (16, 128)
 HEADER = "rollout_persistent.cuh"
 # per kernel: its C entry's pointer arguments, the phases between two
-# barriers by a source's barriers a step, and the phases after the last
-# step's (a pipelined backward runs 5 more, the forward its last prior
-# head)
+# barriers by a barrier source's barriers a step, the phases after the
+# last step's (a pipelined backward runs 5 more, the forward its last
+# prior head), and the head of the step loop of a source without them
 KINDS = {
     "rollout_bwd": {
         "ptrs": 8,
         "phases": {11: ("F0", "F1", "F2", "F3", "F4", "TL", "B0", "B1",
                         "B2", "B3", "B4"),
                    6: ("F0|B0", "F1|B1", "F2|B2", "F3|B3", "F4|B4", "TL")},
-        "trailing": {11: 0, 6: 5}},
+        "trailing": {11: 0, 6: 5},
+        "step_loop": "  for (int t = P.T - 1; t >= -1; --t) {\n"},
     "rollout_fwd": {
         "ptrs": 6,
         "phases": {5: ("P0|D0|P4", "P1|D1", "P2|D2", "P3|D3", "TL")},
-        "trailing": {5: 1}},
+        "trailing": {5: 1},
+        "step_loop": "  for (int t = 0; t <= P.T; ++t) {\n"},
 }
+# the end of a flowing source's kernel (after its last step)
+FLOW_END = "  add_tally(bs, P.cnt.stats);\n"
 COMMON = '#include "rollout_common.cuh"'
 MARK_DEFS = """
 __device__ long long humor_marks[1 << 16];
-__device__ __forceinline__ void humor_mark(long long i) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) humor_marks[i] = clock64();
+__device__ int humor_next;
+__device__ __forceinline__ void humor_mark() {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    humor_marks[humor_next++] = clock64();
 }
 """
 # where a block's time goes, summed over a call: thread 0 of every block
@@ -102,29 +117,37 @@ extern "C" int humor_read_slots(long long* out) {
                                    sizeof(long long) * 16384);
 }
 """
-# (anchors, text after it) of the ticks in the current layout: the first
-# anchor found once is used (the first ones are the current sources',
-# with the header pasted in; the others the earlier single-file
-# backward's)
+# (anchors, text after it) of the ticks: the first anchor found once is
+# used (the first ones are the current sources', with the header pasted
+# in; then the barrier layout's before the ready counters; then the
+# earlier single-file backward's)
 TICK_AT = (
     (("cg::grid_group grid = cg::this_grid();",),
      "\n if (threadIdx.x == 0) humor_last[blockIdx.x] = clock64();"),
     (("    __syncthreads();   // unit x staged; unit x - 1's buffer free\n",),
      " humor_tick(2);\n"),
     (("                 tiles + u.slot * TILE);\n",), " humor_tick(3);\n"),
-    (("    atomicAdd(u.bwd ? L.cnt_b + u.s : L.cnt_f + u.nn, 1);\n  }\n",),
+    (("    release_add(u.bwd ? L.cnt_b + u.s : L.cnt_f + u.nn);\n  }\n",
+      "    atomicAdd(u.bwd ? L.cnt_b + u.s : L.cnt_f + u.nn, 1);\n  }\n"),
      " humor_tick(6);\n"),
-    (("    __syncthreads();   // the tile's K-slices have arrived\n",
+    (("      return finish_dep(bs, bwd, l, o / R, o % R, use, j, p);\n"
+      "    });\n",
+      "    __syncthreads();   // the tile's K-slices have arrived\n",
       "      *cnt = 0;\n    }\n    __syncthreads();\n"), " humor_tick(7);\n"),
-    (("    finish(bwd, l, tile, sl.seg_step[sg], row0);\n    __syncthreads();\n",
+    (("    finish(bwd, l, o / R, sl.seg_step[sg], (o % R) * RT);\n",
+      "    finish(bwd, l, tile, sl.seg_step[sg], row0);\n    __syncthreads();\n",
       "      finish_fwd(P, Ls, l, o, sl.seg_step[sg]);\n    __syncthreads();\n"),
      " humor_tick(4);\n"),
-    (("      tail_phase(P, Ls, t, ring);\n",), " humor_tick(5);\n"),
+    (("tail_phase(P, bs, t, ring);\n", "      tail_phase(P, Ls, t, ring);\n"),
+     " humor_tick(5);\n"),
     (("  __syncthreads();\n  const int n = sl.n;\n",), " humor_tick(8);\n"),
 )
 MARK_READ = """
 extern "C" int humor_clear_marks(void) {
   static long long zero[1 << 16];
+  const int first = 0;
+  cudaError_t e = cudaMemcpyToSymbol(humor_next, &first, sizeof(first));
+  if (e) return (int)e;
   return (int)cudaMemcpyToSymbol(humor_marks, zero, sizeof(zero));
 }
 extern "C" int humor_read_marks(long long* out, int n) {
@@ -154,16 +177,21 @@ def pasted(text, src_dir):
     return text.replace(inc, body)
 
 
-def traced(text):
-    """The source with a clock mark at the start and after each barrier,
-    or None where it has no grid barrier."""
+def traced(text, kind):
+    """The source with a clock mark at the start and after each barrier
+    (a barrier source), or at the start, at each step and at the end (a
+    flowing one); None where it has no grid barrier (a launch a layer)."""
     start = "cg::grid_group grid = cg::this_grid();"
     if start not in text or "grid.sync();" not in text:
         return None
     text = text.replace(COMMON, COMMON + "\n" + MARK_DEFS, 1)
-    text = text.replace("grid.sync();", "grid.sync();\n humor_mark(mk_++);")
-    text = text.replace(start,
-                        start + "\n long long mk_ = 0; humor_mark(mk_++);")
+    loop = KINDS[kind]["step_loop"]
+    if FLOW_END in text and text.count(loop) == 1:
+        text = text.replace(loop, loop + " humor_mark();\n")
+        text = text.replace(FLOW_END, " humor_mark();\n" + FLOW_END)
+    else:
+        text = text.replace("grid.sync();", "grid.sync();\n humor_mark();")
+    text = text.replace(start, start + "\n humor_mark();")
     return text + MARK_READ
 
 
@@ -262,6 +290,8 @@ def main(kind="rollout_bwd"):
         else:
             inputs[M] = (carry0, z, t2j)
 
+    last_scratch = [None]   # the latest call's scratch (its wait tally)
+
     def run(lib, M):
         if kind == "rollout_bwd":
             saved, z, t2j, _ = inputs[M]
@@ -272,6 +302,7 @@ def main(kind="rollout_bwd"):
             out = (torch.empty(STEPS, M, RK.OUT_W, device=dev),
                    torch.empty(STEPS, M, RK.CW, device=dev))
         scratch = torch.empty(scratch_floats(lib, kind, M), device=dev)
+        last_scratch[0] = scratch
         rc = getattr(lib, kind)(
             ctypes.byref(w.struct()), *(t.data_ptr() for t in inputs[M]),
             *(o.data_ptr() for o in out), scratch.data_ptr(), M, STEPS,
@@ -289,7 +320,7 @@ def main(kind="rollout_bwd"):
         text = pasted(f"#define humor humor_study{k}\n" + src.read_text(),
                       src.parent)
         made = {}
-        for kind_of, body in (("", text), ("_traced", traced(text)),
+        for kind_of, body in (("", text), ("_traced", traced(text, kind)),
                               ("_ticked", ticked(text))):
             if body is None:
                 made[kind_of] = None
@@ -327,8 +358,6 @@ def main(kind="rollout_bwd"):
                 found[k].setdefault("kernels_us_a_step", {})[f"M={M}"] = (
                     kernel_us_a_step(lambda: run(lib, M)))
                 continue
-            per_step = getattr(lib, kind + "_barriers_per_step")()
-            names = spec["phases"][per_step]
             torch.cuda.synchronize()
             if tlib.humor_clear_marks() != 0:
                 raise RuntimeError("clearing the marks failed")
@@ -341,16 +370,46 @@ def main(kind="rollout_bwd"):
                 raise RuntimeError(f"reading the marks failed: {rc}")
             used = next(i for i in range(1, n) if marks[i] == 0)
             cyc = [marks[i + 1] - marks[i] for i in range(used - 1)]
-            # a set-up phase before the steps (loading the weights), and
-            # whole steps only
-            lead = len(cyc) - len(names) * STEPS - spec["trailing"][per_step]
-            setup = sum(cyc[:lead])
-            cyc = cyc[lead:lead + len(names) * STEPS]
-            per = [sum(cyc[i::len(names)]) / STEPS for i in range(len(names))]
-            total = sum(per)
-            found[k]["barriers"] = used - 1
-            found[k].setdefault("setup_us", {})[f"M={M}"] = (
-                1e3 * ms * setup / (marks[used - 1] - marks[0]))
+            us_cycle = 1e3 * ms / (marks[used - 1] - marks[0])
+            per_step = getattr(lib, kind + "_barriers_per_step", None)
+            if per_step is not None:
+                per_step = per_step()
+            if per_step is None:
+                # flowing: start, each step's start, end; the loop's last
+                # iteration (the forward's last prior head, the backward's
+                # last step) is not a whole step
+                steps = cyc[1:1 + STEPS]
+                found[k]["barriers_per_call"] = getattr(
+                    lib, kind + "_barriers_per_call")()
+                found[k].setdefault("setup_us", {})[f"M={M}"] = (
+                    us_cycle * cyc[0])
+                found[k].setdefault("step_us", {})[f"M={M}"] = {
+                    "mean": us_cycle * sum(steps) / len(steps),
+                    "max": us_cycle * max(steps),
+                    "last_iteration": us_cycle * sum(cyc[1 + STEPS:])}
+                run(lib, M)
+                torch.cuda.synchronize()
+                found[k].setdefault("waits_a_call", {})[f"M={M}"] = dict(
+                    zip(("waits", "stalled"),
+                        last_scratch[0][:2].view(torch.int32).tolist()))
+            else:
+                names = spec["phases"][per_step]
+                # a set-up phase before the steps (loading the weights),
+                # and whole steps only
+                lead = (len(cyc) - len(names) * STEPS
+                        - spec["trailing"][per_step])
+                setup = sum(cyc[:lead])
+                cyc = cyc[lead:lead + len(names) * STEPS]
+                per = [sum(cyc[i::len(names)]) / STEPS
+                       for i in range(len(names))]
+                total = sum(per)
+                found[k]["barriers"] = used - 1
+                found[k].setdefault("setup_us", {})[f"M={M}"] = (
+                    us_cycle * setup)
+                found[k]["phases"][f"M={M}"] = {
+                    name: {"cycles": c, "share": c / total,
+                           "us_a_step": 1e3 * ms * c / total / STEPS}
+                    for name, c in zip(names, per)}
             if plib is not None:
                 torch.cuda.synchronize()
                 if plib.humor_clear_slots() != 0:
@@ -363,17 +422,12 @@ def main(kind="rollout_bwd"):
                 grid = getattr(lib, kind + "_grid_blocks")()
                 per_block = [[slots[16 * b + i] for i in range(len(SLOTS))]
                              for b in range(grid)]
-                us_cycle = 1e3 * ms / (marks[used - 1] - marks[0])
                 found[k].setdefault("slots_us_a_step", {})[f"M={M}"] = {
                     name: {"mean": us_cycle / STEPS * sum(
                         b[i] for b in per_block) / grid,
                            "max": us_cycle / STEPS * max(
                                b[i] for b in per_block)}
                     for i, name in enumerate(SLOTS)}
-            found[k]["phases"][f"M={M}"] = {
-                name: {"cycles": c, "share": c / total,
-                       "us_a_step": 1e3 * ms * c / total / STEPS}
-                for name, c in zip(names, per)}
     for f in found:
         print(json.dumps(f))
     print(smi("name,power.limit"))

@@ -2,7 +2,8 @@
 rollout (humor_torch/ops/rollout_kernel.py) at full width, M=3 rows, T=6
 steps, both kernels also at the edge sizes of chip_smoke.py (rows off and
 on their tiles, 1, 2 and 6 steps), twice on the same inputs
-(bit-identical) and as one device kernel a call; the nearest neighbour
+(bit-identical), as one device kernel a call and with their wait counters
+read only under a recording; the nearest neighbour
 (humor_torch/ops/chamfer.py) at sizes off and on the edges of its chunks,
 tiles and blocks; and the skinning kernels (humor_torch/ops/skinning.py)
 at the edges of their tiles and blocks and at a training step's shape.
@@ -24,6 +25,7 @@ from humor_torch.ops import cuda_build
 from humor_torch.ops import rollout_kernel as RK
 from humor_torch.ops import skinning as SK
 from humor_torch.ops import transforms as TT
+from humor_torch.utils import profiling
 
 M, T = 3, 6
 
@@ -210,6 +212,33 @@ def test_autograd_function_uses_kernels(cuda_inputs):
     assert RK.launches["rollout_fwd"] == n_f + 1
     assert RK.launches["rollout_bwd"] == n_b + 1
     assert bool(torch.isfinite(leaf.grad).all())
+
+
+@pytest.mark.cuda
+def test_kernels_count_their_waits(cuda_weights):
+    """At T=59, M=16, under a recording, each kernel call adds its
+    ready-waits and the ones that found their input not yet ready to the
+    counters rollout.waits and rollout.waits_stalled: more than 0, and
+    stalled no more than waits. With recording off, a call reads nothing
+    back (torch's sync debug mode at "error" would raise)."""
+    carry0, z, t2j, dout = chip_smoke.rollout_inputs(16, 59, seed=21)
+    _, saved = RK.rollout_forward(cuda_weights, carry0, z, t2j)
+    calls = {"forward": lambda: RK.rollout_forward(cuda_weights, carry0, z,
+                                                   t2j),
+             "backward": lambda: RK.rollout_backward(cuda_weights, saved, z,
+                                                     t2j, dout)}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        with profiling.recording() as rec:
+            call()
+        waits = rec.counters["rollout.waits"]
+        stalled = rec.counters["rollout.waits_stalled"]
+        assert waits > 0 and 0 <= stalled <= waits, (name, waits, stalled)
 
 
 def test_kernel_wrapper_checks_inputs():

@@ -43,6 +43,32 @@ def test_off_a_span_is_one_shared_null_context_and_records_nothing():
     assert not rec.spans and not rec.counters
 
 
+def test_rollout_wait_counters_read_only_while_recording():
+    """The rollout kernels' wait tally (the first two int32 of a call's
+    scratch) reaches the counters rollout.waits and rollout.waits_stalled
+    while recording, and is not read otherwise (a poisoned scratch would
+    raise from the read)."""
+    from humor_torch.ops import rollout_kernel as RK
+
+    assert not PR.active()
+
+    class Unread:
+        def __getitem__(self, index):
+            raise AssertionError("scratch read with recording off")
+
+    RK._count_waits(Unread())
+    scratch = torch.zeros(8)
+    scratch[:2].view(torch.int32).copy_(torch.tensor([7, 3],
+                                                     dtype=torch.int32))
+    with PR.recording() as rec:
+        assert PR.active()
+        RK._count_waits(scratch)
+        RK._count_waits(scratch)
+    assert not PR.active()
+    assert rec.counters["rollout.waits"] == 14
+    assert rec.counters["rollout.waits_stalled"] == 6
+
+
 def test_nested_spans_parents_self_times_and_threads():
     seen = {}
 
